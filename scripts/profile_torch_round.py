@@ -1,0 +1,137 @@
+"""Where one LAQ round of the PyTorch port spends its time on the GPU.
+
+    python3 scripts/profile_torch_round.py [--rounds 2] [--top 20]
+
+Runs the main path of ``chip_smoke.py`` (stablelm-1.6b at its published
+widths, float32 params, bfloat16 compute, W=4, 2x512 tokens per worker,
+accum 2, LAQ b=8 per-leaf on the fused wire) for ``--rounds`` warm-up
+rounds, then three more rounds:
+
+* plain, timed on the host clock and closed by a synchronize;
+* with host timers around the round's stages (each stage ends in
+  ``torch.cuda.synchronize()``): the loss forward, each worker's gradient,
+  each worker's wire roundtrip and skip decision, and the rest
+  (server recursion, update, history push);
+* under ``torch.profiler`` (CPU + CUDA activities): device time by kernel,
+  and the device's busy share of the round's wall time.
+
+Needs a CUDA device; prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                os.pardir, "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import strategy as strategy_mod  # noqa: E402
+from repro_torch.core.adaptive import EtaSchedule  # noqa: E402
+from repro_torch.core.criterion import CriterionConfig  # noqa: E402
+from repro_torch.core.engine import AccumulatingSource, RoundEngine  # noqa: E402
+from repro_torch.core.strategy import StrategyConfig  # noqa: E402
+from repro_torch.data.synthetic import lm_worker_corpus  # noqa: E402
+from repro_torch.models.model import init_params, lm_worker_loss  # noqa: E402
+
+W, N_LOCAL, SEQ, ACCUM, ALPHA = 4, 2, 512, 2, 0.5
+
+
+class StageTimer:
+    """Wall time of named stages, each closed by a device synchronize."""
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--top", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              param_dtype=torch.float32)
+    source = AccumulatingSource(
+        lm_worker_loss(cfg, W),
+        lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda"),
+        deterministic=True, accum=ACCUM, scale=1.0)
+    scfg = StrategyConfig(kind="laq", bits=8, per_leaf_radius=True,
+                          wire_backend="fused",
+                          criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
+                          eta_schedule=EtaSchedule("inv_t", t0=30.0))
+    engine = RoundEngine(source, scfg, alpha=ALPHA)
+    carry = engine.init_carry(init_params(0, cfg, device="cuda"))
+    for _ in range(args.rounds):
+        carry, _ = engine.round(carry)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, rec = engine.round(carry)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    print(f"plain round: {plain:.1f} ms, uploads {rec[2]}")
+
+    timer = StageTimer()
+    source.global_loss = timer.wrap("loss forward (W workers)",
+                                    source.global_loss)
+    source.grad_at = timer.wrap("gradients (fwd+bwd, accum)", source.grad_at)
+    worker_update = strategy_mod.worker_update
+    strategy_mod.worker_update = timer.wrap("wire + skip decision",
+                                            worker_update)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, rec = engine.round(carry)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    strategy_mod.worker_update = worker_update
+    del source.global_loss, source.grad_at
+    print(f"timed round: {total:.1f} ms, uploads {rec[2]}")
+    for name, ms in timer.ms.items():
+        print(f"  {name:32s} {ms:9.1f} ms  {100 * ms / total:5.1f}%")
+    rest = total - sum(timer.ms.values())
+    print(f"  {'rest (recursion, update)':32s} {rest:9.1f} ms  "
+          f"{100 * rest / total:5.1f}%")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        carry, rec = engine.round(carry)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"profiled round: {wall:.1f} ms wall, device busy "
+          f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall:.1f}%); "
+          f"against the plain round's wall: "
+          f"{100 * device_us / 1e3 / plain:.1f}% busy")
+    print(events.table(sort_by="self_device_time_total", row_limit=args.top,
+                       max_name_column_width=60))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,274 @@
+"""Communication strategies GD / QGD / LAG / LAQ, port of
+``repro/core/strategy.py`` (deterministic slice).
+
+    quantize?  lazy-skip?
+GD     no         no        theta^{k+1} = theta^k - alpha * sum_m grad_m
+QGD    yes        no        paper eq. (3)
+LAG    no         yes       Chen et al. 2018 (paper ref [6])
+LAQ    yes        yes       paper eq. (4) + criterion (7a/7b)
+
+The reference vmaps ``worker_update`` over a leading worker axis.  The port
+runs the workers one at a time: per-worker state (``qhat``) is a list of W
+pytrees, and :func:`aggregate` pulls each worker's gradient, updates it and
+commits it before the next gradient exists, so a round holds one worker's
+gradient, delta and q_new at a time.  The skip decision is taken on the
+host (one sync per worker), and a skipped worker's buffers are simply not
+committed instead of being selected against zeros.
+
+Features of the reference state machine that are not ported yet raise
+``NotImplementedError`` from :func:`check_supported`, naming their ROADMAP
+item.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+from .adaptive import EtaSchedule
+from .criterion import CriterionConfig, push_history, should_skip
+from .quantize import dense_bits, tree_size, tree_sq_norm, upload_bits
+from .wire import get_backend
+
+F32 = torch.float32
+KINDS = ("gd", "qgd", "lag", "laq")
+
+
+class StrategyConfig(NamedTuple):
+    """Every field of the reference ``StrategyConfig``.  Fields whose
+    feature is not ported keep their reference defaults (or ``None`` for
+    nested configs of unported modules); switching one on raises."""
+    kind: str = "laq"               # one of KINDS
+    bits: int = 4                   # quantization bits per coordinate
+    criterion: CriterionConfig = CriterionConfig()
+    per_leaf_radius: bool = False   # paper: one global R; True = bucketed
+    first_round_upload: bool = True  # init clocks at t_bar: round 1 is dense
+    state_bf16: bool = False        # qhat/server_agg in bf16 (not ported)
+    bit_schedule: Optional[object] = None  # adaptive widths (not ported)
+    wire_backend: str = "reference"  # "reference" | "fused" (core/wire.py)
+    lazy_rule: str = "laq7a"        # only the paper's eq. 7a is ported
+    lasg: Optional[object] = None   # LASG constants (lazy rules not ported)
+    grad_mode: str = "sgd"          # "svrg" not ported
+    svrg_period: int = 20
+    eta_schedule: EtaSchedule = EtaSchedule()  # per-round stepsize alpha_k
+    participation: str = "full"     # only "full" is ported
+    participation_p: float = 1.0
+    max_delay: int = 0
+    participation_seed: int = 0
+    compressor: str = "none"        # sparsifying compressors not ported
+    compressor_k: float = 0.25
+    error_feedback: bool = False
+    ef_damping: float = 0.5
+    compressor_seed: int = 0
+    markov_sojourn: float = 8.0
+    faults: Optional[object] = None   # fault injection (not ported)
+    defense: Optional[object] = None  # server-side validation (not ported)
+    aggregator: str = "sum"         # only the paper's sum recursion is ported
+    trim_frac: float = 0.1
+
+    @property
+    def quantized(self) -> bool:
+        return self.kind in ("qgd", "laq")
+
+    @property
+    def lazy(self) -> bool:
+        return self.kind in ("lag", "laq")
+
+
+def check_supported(cfg: StrategyConfig):
+    """Raise for a configuration this slice of the port cannot run."""
+    if cfg.kind not in KINDS:
+        raise ValueError(f"unknown kind {cfg.kind!r}; have {KINDS}")
+    gated = [
+        (cfg.lazy and cfg.lazy_rule != "laq7a", "Lazy rules and SVRG"),
+        (cfg.grad_mode != "sgd", "Lazy rules and SVRG"),
+        (cfg.bit_schedule is not None, "Adaptive width"),
+        (cfg.compressor != "none" or cfg.error_feedback,
+         "Compressors and EF-LAQ"),
+        (cfg.participation != "full", "Participation"),
+        (cfg.faults is not None or cfg.defense is not None, "Robustness"),
+        (cfg.aggregator != "sum", "Robustness"),
+        (cfg.lasg is not None, "Lazy rules and SVRG"),
+        (cfg.state_bf16, "LM workload"),
+    ]
+    for on, item in gated:
+        if on:
+            raise NotImplementedError(
+                f"{cfg} switches on a feature that is not ported yet "
+                f"(ROADMAP.md queue 1: {item})")
+
+
+class CommState(NamedTuple):
+    """LAQ state.  ``qhat`` is a list of W per-worker pytrees on the
+    parameters' device, ``server_agg`` one pytree there; the small
+    bookkeeping lives on the host as float32/int CPU tensors and ints.
+
+    :func:`aggregate` updates ``qhat`` (the list) and ``server_agg`` in
+    place to hold memory at one copy each.
+    """
+    qhat: list              # [W] last uploaded quantized gradient Q_m(theta_hat)
+    server_agg: object      # server aggregate agg^{k-1}
+    eps_hat_sq: torch.Tensor  # [W] ||eps_hat_m||^2 at last upload
+    clocks: torch.Tensor    # [W] int32 t_m
+    bits_spent: torch.Tensor  # [W] cumulative wire bits per worker
+    theta_hist: torch.Tensor  # [D] ||theta^{k+1-d} - theta^{k-d}||^2 ring
+    total_bits: torch.Tensor  # float32, as in the reference
+    total_uploads: int
+    step: int
+
+
+class RoundMetrics(NamedTuple):
+    uploads: int            # |M^k| this round
+    bits: torch.Tensor      # wire bits this round (float32)
+    mean_skip: float        # fraction of workers skipping
+    radius_max: torch.Tensor  # max_m R_m^k (0 for unquantized)
+    mean_bits: torch.Tensor  # mean width over uploading workers
+
+
+def init_comm_state(grad_template, n_workers: int,
+                    cfg: StrategyConfig) -> CommState:
+    """Zero state; ``grad_template`` gives one worker's leaf shapes and the
+    device the per-worker buffers live on."""
+    check_supported(cfg)
+
+    def zeros(l):
+        return torch.zeros(l.shape, dtype=F32, device=l.device)
+
+    # clocks start at t_bar when first_round_upload: criterion (7b) then
+    # forces a dense first round, bootstrapping qhat / the server aggregate
+    clock0 = cfg.criterion.t_bar if (cfg.lazy and cfg.first_round_upload) else 0
+    return CommState(
+        qhat=[tree_map(zeros, grad_template) for _ in range(n_workers)],
+        server_agg=tree_map(zeros, grad_template),
+        eps_hat_sq=torch.zeros(n_workers, dtype=F32),
+        clocks=torch.full((n_workers,), clock0, dtype=torch.int32),
+        bits_spent=torch.zeros(n_workers, dtype=F32),
+        theta_hist=torch.zeros(cfg.criterion.D, dtype=F32),
+        total_bits=torch.zeros((), dtype=F32),
+        total_uploads=0,
+        step=0,
+    )
+
+
+class WorkerOut(NamedTuple):
+    """Result of :func:`worker_update`.  ``delta_masked`` is ``None`` when
+    the worker did not commit (the reference's all-zero contribution)."""
+    delta_masked: object
+    qhat_new: object
+    eps_hat_sq_new: torch.Tensor
+    clock_new: int
+    uploaded: bool          # the worker sent a payload
+    bits_m: torch.Tensor    # float32 wire bits of this worker this round
+    R: torch.Tensor         # max leaf radius (0 for unquantized)
+    width_m: float          # static width, 32 for dense uploads
+    committed: bool         # the server applied the payload (== uploaded)
+
+
+def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
+                  n_workers: int, cfg: StrategyConfig) -> WorkerOut:
+    """One worker's quantize + skip decision (quantized, dense and laq7a
+    branches of the reference)."""
+    check_supported(cfg)
+    p = tree_size(grad_m)
+    n_sidecars = len(tree_leaves(grad_m)) if cfg.per_leaf_radius else 1
+    if cfg.quantized:
+        rt = get_backend(cfg.wire_backend).roundtrip(
+            grad_m, qhat_m, cfg.bits, cfg.per_leaf_radius)
+        q_new, delta, R = rt.q_new, rt.delta, rt.R_max
+        err_sq, innovation_sq = rt.err_sq, rt.innovation_sq
+        bits_if_upload = float(upload_bits(p, cfg.bits, n_radii=n_sidecars))
+        width_m = float(cfg.bits)
+    else:
+        q_new = tree_map(lambda g: g.to(F32), grad_m)
+        delta = tree_map(lambda g, q: g - q, q_new, qhat_m)
+        R = torch.zeros((), dtype=F32)
+        err_sq = torch.zeros((), dtype=F32)
+        innovation_sq = tree_sq_norm(delta)
+        bits_if_upload = float(dense_bits(p))
+        width_m = 32.0
+
+    err_sq = err_sq.cpu()
+    if cfg.lazy:
+        skip = bool(should_skip(innovation_sq.cpu(), theta_hist, alpha,
+                                n_workers, err_sq, eps_hat_sq_m, clock_m,
+                                cfg.criterion))
+    else:
+        skip = False
+    uploaded = not skip
+    committed = uploaded
+    bits_m = (torch.tensor(float(uploaded), dtype=F32)
+              * torch.tensor(bits_if_upload, dtype=F32))
+    return WorkerOut(
+        delta_masked=delta if committed else None,
+        qhat_new=q_new if committed else qhat_m,
+        eps_hat_sq_new=err_sq if committed else eps_hat_sq_m,
+        clock_new=0 if committed else int(clock_m) + 1,
+        uploaded=uploaded, bits_m=bits_m, R=R.cpu(), width_m=width_m,
+        committed=committed)
+
+
+def _add_(acc, tree):
+    for a, x in zip(tree_leaves(acc), tree_leaves(tree)):
+        a.add_(x)
+
+
+def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
+              cfg: StrategyConfig):
+    """Aggregate the workers' gradients into the LAQ gradient.
+
+    ``grad_of(m)`` returns worker m's gradient pytree; it is called once
+    per worker, in order, and each gradient is dropped once its worker is
+    committed.  Returns ``(agg_grad, new_state, metrics)``; ``agg_grad`` is
+    the new server aggregate.  The caller applies ``theta <- theta - alpha
+    * agg_grad`` and then :func:`finalize_step`.
+
+    ``state.qhat`` and ``state.server_agg`` are updated in place.
+    """
+    n_workers = len(state.qhat)
+    # sum_m delta_masked first, then agg + sum, as the reference's
+    # a + jnp.sum(d, axis=0): the zero-started running sum repeats its
+    # additions in worker order (a skipped worker adds an exact zero)
+    dsum = tree_map(torch.zeros_like, state.server_agg)
+    eps, clocks = state.eps_hat_sq.clone(), state.clocks.clone()
+    bits_m, radii, widths, ups = [], [], [], []
+    for m in range(n_workers):
+        wo = worker_update(grad_of(m), state.qhat[m], state.eps_hat_sq[m],
+                           state.clocks[m], state.theta_hist, alpha,
+                           n_workers, cfg)
+        if wo.committed:
+            _add_(dsum, wo.delta_masked)
+            state.qhat[m] = wo.qhat_new
+        eps[m] = wo.eps_hat_sq_new
+        clocks[m] = wo.clock_new
+        bits_m.append(wo.bits_m)
+        radii.append(wo.R)
+        widths.append(wo.width_m)
+        ups.append(wo.uploaded)
+        del wo
+    _add_(state.server_agg, dsum)
+    del dsum
+
+    bits_m = torch.stack(bits_m)
+    uploads = sum(ups)
+    bits = bits_m.sum()
+    fup = torch.tensor([float(u) for u in ups], dtype=F32)
+    mean_bits = ((torch.tensor(widths, dtype=F32) * fup).sum()
+                 / torch.clamp_min(fup.sum(), 1.0))
+    metrics = RoundMetrics(uploads=uploads, bits=bits,
+                           mean_skip=1.0 - uploads / n_workers,
+                           radius_max=torch.stack(radii).amax(),
+                           mean_bits=mean_bits)
+    new_state = state._replace(
+        eps_hat_sq=eps, clocks=clocks,
+        bits_spent=state.bits_spent + bits_m,
+        total_bits=state.total_bits + bits,
+        total_uploads=state.total_uploads + uploads,
+        step=state.step + 1)
+    return state.server_agg, new_state, metrics
+
+
+def finalize_step(state: CommState, theta_diff_sq) -> CommState:
+    """Push ||theta^{k+1}-theta^k||^2 into the criterion's history ring."""
+    return state._replace(
+        theta_hist=push_history(state.theta_hist, theta_diff_sq))

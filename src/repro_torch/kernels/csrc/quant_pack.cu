@@ -1,0 +1,311 @@
+// LAQ send-side wire kernels for Hopper (sm_90a), hand-written CUDA C++.
+//
+// Build (done at first use by repro_torch/kernels/quant_pack.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
+//        -shared -Xcompiler -fPIC -o libquant_pack.so quant_pack.cu
+// Plain C interface, loaded with ctypes; every entry point launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
+//
+// laq_absmax replaces absmax_pallas (src/repro/kernels/quant_pack.py):
+//   R = max_i |g_i - qh_i| without materializing the difference.
+//   Bound: bytes. It reads 8 B per element and writes one float, so it is
+//   an HBM sweep (1.1e9 B at the largest stablelm-1.6b leaf).  Design:
+//   grid-stride loop with 16-byte loads, one partial per block from a
+//   warp-shuffle tree, then one warp folds the partials.  The max is
+//   NaN-propagating (fmaxf would drop a NaN; jnp.max keeps it), and max is
+//   order-free, so R equals the reference bit for bit.
+//
+// laq_quantize_pack replaces quantize_pack_pallas (same file):
+//   one sweep that emits the b-bit codes packed little-end-first, delta,
+//   q_new = qh + delta and the two criterion moments ||g - q_new||^2 and
+//   ||delta||^2.  Bound: bytes: it reads 8 B and writes 8 + b/8 B per
+//   element.  Design: each thread takes groups of 8 consecutive elements,
+//   which are exactly b whole payload bytes for every b in {1, 2, 4, 8},
+//   so the packed bytes are written by one store per group and no two
+//   threads share a byte.  Loads and the delta/q_new stores are 16 bytes.
+//   Moments: per-thread float64 sums, a fixed shuffle tree per block, one
+//   partial per block, then one warp folds the partials in a fixed order:
+//   deterministic, no atomics.  The ragged tail is masked here (no padding
+//   of the inputs); a tail byte with fewer than 8/b real codes carries the
+//   midpoint code in its unused lanes (docs/wire-format.md).
+//
+// Rounding, held bit for bit against the JAX reference under jit:
+//   denom = f32(2 tau) * R        (2 tau folded in double on the host)
+//   q     = clamp(floor((d + R) / denom + 0.5), 0, 2^b - 1)   IEEE division
+//   delta = fma(denom, q, -R)     (XLA contracts 2 tau R * q - R to an FMA)
+//   R == 0 (or NaN): q = 2^(b-1), delta = 0.
+// Compiled with -fmad=false and no fast-math: only the explicit intrinsics
+// below fuse or round.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  // NaN-propagating max of two non-negative values
+  return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float absdiff(float a, float b) {
+  return fabsf(__fsub_rn(a, b));
+}
+
+__global__ void __launch_bounds__(kThreads)
+absmax_kernel(const float* __restrict__ g, const float* __restrict__ qh,
+              int64_t n, int aligned, float* __restrict__ partial) {
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  float m = 0.f;
+  int64_t head = 0;
+  if (aligned) {
+    const int64_t n4 = n / 4;
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    const float4* q4 = reinterpret_cast<const float4*>(qh);
+    for (int64_t i = tid; i < n4; i += stride) {
+      const float4 a = __ldg(g4 + i);
+      const float4 b = __ldg(q4 + i);
+      m = max_nan(m, absdiff(a.x, b.x));
+      m = max_nan(m, absdiff(a.y, b.y));
+      m = max_nan(m, absdiff(a.z, b.z));
+      m = max_nan(m, absdiff(a.w, b.w));
+    }
+    head = n4 * 4;
+  }
+  for (int64_t i = head + tid; i < n; i += stride)
+    m = max_nan(m, absdiff(g[i], qh[i]));
+
+  __shared__ float sh[kWarps];
+  m = warp_max(m);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sh[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < kWarps ? sh[lane] : 0.f;
+    m = warp_max(m);
+    if (lane == 0) partial[blockIdx.x] = m;
+  }
+}
+
+__global__ void max_partials_kernel(const float* __restrict__ partial,
+                                    int nparts, float* __restrict__ out) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < nparts; i += 32) m = max_nan(m, partial[i]);
+  m = warp_max(m);
+  if (threadIdx.x == 0) out[0] = m;
+}
+
+template <int BITS>
+__device__ __forceinline__ void store_packed(uint8_t* p, uint64_t word) {
+  if constexpr (BITS == 8) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2((uint32_t)word, (uint32_t)(word >> 32));
+  } else if constexpr (BITS == 4) {
+    *reinterpret_cast<uint32_t*>(p) = (uint32_t)word;
+  } else if constexpr (BITS == 2) {
+    *reinterpret_cast<uint16_t*>(p) = (uint16_t)word;
+  } else {
+    *p = (uint8_t)word;
+  }
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
+                     const float* __restrict__ Rp, float two_tau, int64_t n,
+                     int aligned, uint8_t* __restrict__ packed,
+                     float* __restrict__ delta, float* __restrict__ qnew,
+                     double* __restrict__ err_part,
+                     double* __restrict__ inn_part) {
+  constexpr int kLevels = (1 << BITS) - 1;
+  constexpr uint32_t kMid = (kLevels + 1) / 2;
+  const float R = Rp[0];
+  const bool live = R > 0.f;                 // false for R == 0 and NaN
+  const float denom = live ? __fmul_rn(two_tau, R) : 1.f;
+  const float neg_R = -R;
+  const int64_t ngroups = (n + 7) / 8;
+  const int64_t nbytes = (n * BITS + 7) / 8;
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+
+  double err_acc = 0.0, inn_acc = 0.0;
+  for (int64_t gi = tid; gi < ngroups; gi += stride) {
+    const int64_t base = gi * 8;
+    const bool full = base + 8 <= n;
+    float gv[8], qv[8];
+    if (full && aligned) {
+      const float4* g4 = reinterpret_cast<const float4*>(g + base);
+      const float4* q4 = reinterpret_cast<const float4*>(qh + base);
+      const float4 a0 = __ldg(g4), a1 = __ldg(g4 + 1);
+      const float4 b0 = __ldg(q4), b1 = __ldg(q4 + 1);
+      gv[0] = a0.x; gv[1] = a0.y; gv[2] = a0.z; gv[3] = a0.w;
+      gv[4] = a1.x; gv[5] = a1.y; gv[6] = a1.z; gv[7] = a1.w;
+      qv[0] = b0.x; qv[1] = b0.y; qv[2] = b0.z; qv[3] = b0.w;
+      qv[4] = b1.x; qv[5] = b1.y; qv[6] = b1.z; qv[7] = b1.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool in = base + j < n;
+        gv[j] = in ? g[base + j] : 0.f;
+        qv[j] = in ? qh[base + j] : 0.f;
+      }
+    }
+
+    float dl[8], qn[8];
+    uint64_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d = __fsub_rn(gv[j], qv[j]);
+      float qf = (float)kMid, dv = 0.f;
+      if (live) {
+        qf = floorf(__fadd_rn(__fdiv_rn(__fadd_rn(d, R), denom), 0.5f));
+        qf = fminf(fmaxf(qf, 0.f), (float)kLevels);
+        dv = __fmaf_rn(denom, qf, neg_R);
+      }
+      const float qnv = __fadd_rn(qv[j], dv);
+      dl[j] = dv;
+      qn[j] = qnv;
+      uint32_t code = (uint32_t)qf;
+      if (base + j < n) {
+        const double e = (double)__fsub_rn(gv[j], qnv);
+        err_acc = __fma_rn(e, e, err_acc);
+        inn_acc = __fma_rn((double)dv, (double)dv, inn_acc);
+      } else {
+        code = kMid;                         // pad lanes of the tail byte
+      }
+      word |= (uint64_t)code << (BITS * j);
+    }
+
+    if (full && aligned) {
+      float4* d4 = reinterpret_cast<float4*>(delta + base);
+      float4* n4 = reinterpret_cast<float4*>(qnew + base);
+      d4[0] = make_float4(dl[0], dl[1], dl[2], dl[3]);
+      d4[1] = make_float4(dl[4], dl[5], dl[6], dl[7]);
+      n4[0] = make_float4(qn[0], qn[1], qn[2], qn[3]);
+      n4[1] = make_float4(qn[4], qn[5], qn[6], qn[7]);
+      store_packed<BITS>(packed + gi * BITS, word);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (base + j < n) {
+          delta[base + j] = dl[j];
+          qnew[base + j] = qn[j];
+        }
+      }
+      for (int k = 0; k < BITS; ++k) {
+        if (gi * BITS + k < nbytes)
+          packed[gi * BITS + k] = (uint8_t)(word >> (8 * k));
+      }
+    }
+  }
+
+  __shared__ double sh_err[kWarps], sh_inn[kWarps];
+  err_acc = warp_sum(err_acc);
+  inn_acc = warp_sum(inn_acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    sh_err[warp] = err_acc;
+    sh_inn[warp] = inn_acc;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    err_acc = warp_sum(lane < kWarps ? sh_err[lane] : 0.0);
+    inn_acc = warp_sum(lane < kWarps ? sh_inn[lane] : 0.0);
+    if (lane == 0) {
+      err_part[blockIdx.x] = err_acc;
+      inn_part[blockIdx.x] = inn_acc;
+    }
+  }
+}
+
+__global__ void sum_partials_kernel(const double* __restrict__ err_part,
+                                    const double* __restrict__ inn_part,
+                                    int nparts, float* __restrict__ out) {
+  double e = 0.0, s = 0.0;
+  for (int i = threadIdx.x; i < nparts; i += 32) {
+    e = __dadd_rn(e, err_part[i]);
+    s = __dadd_rn(s, inn_part[i]);
+  }
+  e = warp_sum(e);
+  s = warp_sum(s);
+  if (threadIdx.x == 0) {
+    out[0] = (float)e;
+    out[1] = (float)s;
+  }
+}
+
+template <int BITS>
+cudaError_t launch_quantize_pack(const float* g, const float* qh,
+                                 const float* R, float two_tau, int64_t n,
+                                 int aligned, uint8_t* packed, float* delta,
+                                 float* qnew, double* err_part,
+                                 double* inn_part, int nparts,
+                                 cudaStream_t stream) {
+  quantize_pack_kernel<BITS><<<nparts, kThreads, 0, stream>>>(
+      g, qh, R, two_tau, n, aligned, packed, delta, qnew, err_part, inn_part);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int laq_threads_per_block() { return kThreads; }
+
+// R_out[0] = max |g - qh| over n elements; partial holds nparts floats.
+int laq_absmax(const float* g, const float* qh, long long n, int aligned,
+               float* partial, int nparts, float* R_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  absmax_kernel<<<nparts, kThreads, 0, s>>>(g, qh, n, aligned, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  max_partials_kernel<<<1, 32, 0, s>>>(partial, nparts, R_out);
+  return (int)cudaGetLastError();
+}
+
+// One pass-2 sweep; moments[0] = ||g - q_new||^2, moments[1] = ||delta||^2.
+int laq_quantize_pack(const float* g, const float* qh, const float* R,
+                      float two_tau, int bits, long long n, int aligned,
+                      uint8_t* packed, float* delta, float* qnew,
+                      double* err_part, double* inn_part, int nparts,
+                      float* moments, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (bits) {
+    case 1: err = launch_quantize_pack<1>(g, qh, R, two_tau, n, aligned, packed,
+                                          delta, qnew, err_part, inn_part,
+                                          nparts, s); break;
+    case 2: err = launch_quantize_pack<2>(g, qh, R, two_tau, n, aligned, packed,
+                                          delta, qnew, err_part, inn_part,
+                                          nparts, s); break;
+    case 4: err = launch_quantize_pack<4>(g, qh, R, two_tau, n, aligned, packed,
+                                          delta, qnew, err_part, inn_part,
+                                          nparts, s); break;
+    case 8: err = launch_quantize_pack<8>(g, qh, R, two_tau, n, aligned, packed,
+                                          delta, qnew, err_part, inn_part,
+                                          nparts, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  sum_partials_kernel<<<1, 32, 0, s>>>(err_part, inn_part, nparts, moments);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

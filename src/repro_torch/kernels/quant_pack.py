@@ -1,0 +1,142 @@
+"""Build and ctypes binding of the hand-written CUDA wire kernels
+(``csrc/quant_pack.cu``; what each kernel replaces and what bounds it is
+noted at the top of that file).
+
+The library is compiled by ``nvcc`` for ``sm_90a`` at first use, into
+``_build/`` beside this file (listed in ``.gitignore``), keyed by a hash of
+the source and flags so an edited source is rebuilt.  Nothing is compiled
+or loaded at import time: this module must import on a machine without
+``nvcc`` or a card.  The functions here launch on PyTorch's current stream,
+allocate their outputs with ``torch.empty`` and raise if the launch is
+refused; operand checks live in :mod:`repro_torch.kernels.ops`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..core.quantize import tau
+
+SOURCE = Path(__file__).parent / "csrc" / "quant_pack.cu"
+BUILD_DIR = Path(__file__).parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+MAX_BLOCKS = 132 * 8          # 8 resident 256-thread blocks on each of 132 SMs
+_VP = ctypes.c_void_p
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA wire kernels cannot be built")
+    return path
+
+
+class _Library:
+    """The loaded shared library and the compiler's report of its build."""
+
+    def __init__(self):
+        src = SOURCE.read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        lib_path = BUILD_DIR / f"libquant_pack_{digest[:16]}.so"
+        self.build_log = f"cached: {lib_path.name}"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{res.stderr}")
+            os.replace(tmp, lib_path)
+            self.build_log = res.stdout + res.stderr
+        self.path = lib_path
+        lib = ctypes.CDLL(str(lib_path))
+        lib.laq_absmax.argtypes = [_VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                                   _VP, ctypes.c_int, _VP, _VP]
+        lib.laq_absmax.restype = ctypes.c_int
+        lib.laq_quantize_pack.argtypes = [
+            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP]
+        lib.laq_quantize_pack.restype = ctypes.c_int
+        lib.laq_threads_per_block.argtypes = []
+        lib.laq_threads_per_block.restype = ctypes.c_int
+        self.lib = lib
+        self.threads = lib.laq_threads_per_block()
+
+
+_LIBRARY: _Library | None = None
+
+
+def library() -> _Library:
+    """Build (once per source hash) and load the kernels."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = _Library()
+    return _LIBRARY
+
+
+def _check(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
+
+
+def _grid(work_items: int, threads: int) -> int:
+    return max(1, min(MAX_BLOCKS, -(-work_items // threads)))
+
+
+def _aligned(*tensors) -> int:
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def absmax_cuda(g: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """``max |g - qh|`` as a float32 0-d tensor; ``g``/``qh`` contiguous
+    float32 CUDA vectors of one length n (0 gives R = 0)."""
+    lib = library()
+    n = g.numel()
+    nparts = _grid(-(-n // 4), lib.threads)
+    partial = torch.empty(nparts, dtype=torch.float32, device=g.device)
+    out = torch.empty((), dtype=torch.float32, device=g.device)
+    _check(lib.lib.laq_absmax(g.data_ptr(), qh.data_ptr(), n,
+                              _aligned(g, qh), partial.data_ptr(), nparts,
+                              out.data_ptr(), _stream(g)), "laq_absmax")
+    return out
+
+
+def quantize_pack_cuda(g: torch.Tensor, qh: torch.Tensor, R: torch.Tensor,
+                       bits: int):
+    """``(packed, delta, q_new, err_sq, innovation_sq)`` for one flat leaf:
+    ``packed`` uint8 ``[ceil(n b / 8)]``, ``delta``/``q_new`` float32
+    ``[n]``, the moments float32 0-d tensors."""
+    lib = library()
+    n = g.numel()
+    dev = g.device
+    packed = torch.empty(-(-n * bits // 8), dtype=torch.uint8, device=dev)
+    delta = torch.empty(n, dtype=torch.float32, device=dev)
+    q_new = torch.empty(n, dtype=torch.float32, device=dev)
+    nparts = _grid(-(-n // 8), lib.threads)
+    parts = torch.empty((2, nparts), dtype=torch.float64, device=dev)
+    moments = torch.empty(2, dtype=torch.float32, device=dev)
+    two_tau = float(torch.tensor(2.0 * tau(bits), dtype=torch.float32))
+    _check(lib.lib.laq_quantize_pack(
+        g.data_ptr(), qh.data_ptr(), R.data_ptr(), two_tau, bits, n,
+        _aligned(g, qh, packed, delta, q_new), packed.data_ptr(),
+        delta.data_ptr(), q_new.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), nparts, moments.data_ptr(), _stream(g)),
+        "laq_quantize_pack")
+    return packed, delta, q_new, moments[0], moments[1]

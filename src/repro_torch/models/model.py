@@ -1,0 +1,34 @@
+"""Top-level model API: loss and the federated worker objective (port of
+``repro/models/model.py``, training half)."""
+from __future__ import annotations
+
+import torch
+
+from . import stack
+from .config import ModelConfig
+
+
+def lm_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross entropy (token mean).
+
+    The target logit is taken with ``gather``; the reference contracts a
+    one-hot over the vocab (which shards better under GSPMD).  Same value,
+    without a ``[B, S, V]`` one-hot.  Dense models carry no auxiliary loss.
+    """
+    logits = stack.forward(params, batch["tokens"], cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch["targets"][..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def lm_worker_loss(cfg: ModelConfig, n_workers: int):
+    """One worker's local objective ``lm_loss / W``, so the engine's global
+    objective ``sum_m f_m`` is the global mean token cross-entropy."""
+    def loss_fn(params, batch):
+        return lm_loss(params, batch, cfg) / n_workers
+
+    return loss_fn
+
+
+init_params = stack.init_params
+forward = stack.forward

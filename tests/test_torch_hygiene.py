@@ -1,0 +1,60 @@
+"""Port hygiene: the port imports no JAX and nothing of the JAX package, its
+entry points refuse to fall back to the CPU on their own, and the kernel
+wrappers refuse operands the CUDA kernels cannot take."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.data.synthetic import lm_worker_corpus
+from repro_torch.kernels import ops
+from repro_torch.models.model import init_params
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_file_imports_no_jax(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_entry_points_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = smoke_config(get_config("stablelm-1.6b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_worker_corpus(0, 2, 2, 8, cfg.vocab)
+    assert init_params(0, cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_bad_operands():
+    g = torch.zeros(16, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ops.absmax(g, g)
+    f = torch.zeros(16)
+    with pytest.raises(ValueError, match="elements"):
+        ops.absmax(f, torch.zeros(8))
+    with pytest.raises(ValueError, match="R must be"):
+        ops.quantize_pack_fused(f, f, torch.zeros(2), 8)
+    with pytest.raises(ValueError, match="bits"):
+        ops.quantize_pack_fused(f, f, torch.zeros(()), 3)
+    meta = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.absmax(meta, meta)
