@@ -1,10 +1,14 @@
-"""Where one LAQ round of the PyTorch port spends its time on the GPU.
+"""Where one round of the PyTorch port spends its time on the GPU.
 
-    python3 scripts/profile_torch_round.py [--rounds 2] [--top 20]
+    python3 scripts/profile_torch_round.py [--method laq|alaq|ef_topk]
+        [--rounds 2] [--top 20]
 
-Runs the main path of ``chip_smoke.py`` (stablelm-1.6b at its published
+Runs one of ``chip_smoke.py``'s paths (stablelm-1.6b at its published
 widths, float32 params, bfloat16 compute, W=4, 2x512 tokens per worker,
-accum 2, LAQ b=8 per-leaf on the fused wire) for ``--rounds`` warm-up
+accum 2, on the fused wire) with one of ``benchmarks/lm_frontier.py``'s
+deterministic methods: ``laq`` (b=8, per-leaf radii, 24 layers), ``alaq``
+(the radius schedule on the grid (2, 4, 8), 24 layers) or ``ef_topk``
+(b=4, top-k of 5%, error feedback, 8 layers), for ``--rounds`` warm-up
 rounds, then three more rounds:
 
 * plain, timed on the host clock and closed by a synchronize;
@@ -34,7 +38,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import strategy as strategy_mod  # noqa: E402
-from repro_torch.core.adaptive import EtaSchedule  # noqa: E402
+from repro_torch.core.adaptive import BitSchedule, EtaSchedule  # noqa: E402
 from repro_torch.core.criterion import CriterionConfig  # noqa: E402
 from repro_torch.core.engine import AccumulatingSource, RoundEngine  # noqa: E402
 from repro_torch.core.strategy import StrategyConfig  # noqa: E402
@@ -42,6 +46,14 @@ from repro_torch.data.synthetic import lm_worker_corpus  # noqa: E402
 from repro_torch.models.model import init_params, lm_worker_loss  # noqa: E402
 
 W, N_LOCAL, SEQ, ACCUM, ALPHA = 4, 2, 512, 2, 0.5
+METHODS = {   # benchmarks/lm_frontier.py:84-96, fused wire: (strategy, layers)
+    "laq": (dict(bits=8), 24),
+    "alaq": (dict(bits=8, bit_schedule=BitSchedule(
+        kind="radius", grid=(2, 4, 8), threshold_mode="rel",
+        thresholds=(0.05, 0.5))), 24),
+    "ef_topk": (dict(bits=4, compressor="topk", compressor_k=0.05,
+                     error_feedback=True), 8),
+}
 
 
 class StageTimer:
@@ -63,6 +75,7 @@ class StageTimer:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--method", choices=sorted(METHODS), default="laq")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -72,13 +85,16 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
 
+    method, layers = METHODS[args.method]
     cfg = dataclasses.replace(get_config("stablelm-1.6b"),
-                              param_dtype=torch.float32)
+                              param_dtype=torch.float32,
+                              n_layers=layers)
+    print(f"{args.method}, {cfg.n_layers} layers")
     source = AccumulatingSource(
         lm_worker_loss(cfg, W),
         lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda"),
         deterministic=True, accum=ACCUM, scale=1.0)
-    scfg = StrategyConfig(kind="laq", bits=8, per_leaf_radius=True,
+    scfg = StrategyConfig(kind="laq", **method, per_leaf_radius=True,
                           wire_backend="fused",
                           criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
                           eta_schedule=EtaSchedule("inv_t", t0=30.0))

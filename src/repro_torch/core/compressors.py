@@ -1,0 +1,186 @@
+"""Sparsifying compressor and error-feedback memory (EF-LAQ), port of the
+parts of ``repro/core/compressors.py`` that the engine's sparse branch
+runs: support selection, the sign-magnitude grid on the survivors, and the
+per-worker residual.
+
+The pipeline stage classes (``TopKSparsifier``, ``UniformQuantizer``,
+``CodePacker``, ``CompressorPipeline``) and the unbiased dense baselines
+(``qsgd_compress``, ``ssgd_compress``) are not ported: no engine path uses
+them.  ``randk`` needs ``jax.random``'s bits and raises until the port has
+them (ROADMAP.md queue 1: RNG parity).
+
+Bit-identity with the reference under jit:
+
+* top-k keeps ``jax.lax.top_k``'s support: ties at the k-th largest |d|
+  go to the lowest index.  ``torch.topk`` promises no order among ties, so
+  only its values are used, to find the k-th largest magnitude.
+* XLA rewrites ``(hi - lo) / L`` (a constant divisor) as ``(hi - lo) *
+  f32(1 / L)`` and contracts ``lo + mag * step`` into one FMA; the grid
+  here does the same (:func:`repro_torch.core.quantize.fma_f32`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..tree import tree_flatten, tree_map, tree_unflatten
+from .quantize import fma_f32
+
+F32 = torch.float32
+COMPRESSORS = ("none", "topk", "randk")
+
+
+def _flat(tree):
+    """``(flat, meta)``: the leaves concatenated into one new float32
+    vector (a copy even for one leaf, so callers may update it in place)."""
+    leaves, treedef = tree_flatten(tree)
+    dev = leaves[0].device if leaves else None
+    flat = torch.cat([l.reshape(-1).to(F32) for l in leaves]
+                     or [torch.zeros(0, dtype=F32, device=dev)])
+    return flat, (treedef, [tuple(l.shape) for l in leaves],
+                  [l.numel() for l in leaves])
+
+
+def _unflat(flat, meta):
+    """The pytree of ``meta`` as views into ``flat`` (no copy)."""
+    treedef, shapes, sizes = meta
+    out, off = [], 0
+    for sh, sz in zip(shapes, sizes):
+        out.append(flat[off:off + sz].reshape(sh))
+        off += sz
+    return tree_unflatten(treedef, out)
+
+
+def static_k(k_frac: float, p: int) -> int:
+    """Survivor count ``round(k_frac * p)`` clipped to [0, p] (Python's
+    round, as the reference's)."""
+    if not 0.0 <= k_frac <= 1.0:
+        raise ValueError(f"k_frac must lie in [0, 1], got {k_frac}")
+    return min(p, max(0, int(round(k_frac * p))))
+
+
+class SparseSelection(NamedTuple):
+    """A sparsifier's output: ``idx`` ascending (int64, torch's index
+    type; the reference's is int32), ``vals`` the survivors in that
+    order."""
+    idx: torch.Tensor
+    vals: torch.Tensor
+
+
+def _topk_support(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """Ascending indices of the k largest |flat|, ties to the lowest index."""
+    a = flat.abs()
+    kth = torch.topk(a, k, sorted=False).values.min()
+    keep = a > kth
+    need = k - int(keep.sum())
+    if need > 0:
+        keep[torch.nonzero(a == kth).reshape(-1)[:need]] = True
+    del a
+    idx = torch.nonzero(keep).reshape(-1)
+    if idx.numel() != k:
+        raise ValueError(f"top-k found {idx.numel()} of {k} survivors: the "
+                         "innovation holds NaN")
+    return idx
+
+
+def select_support(mode: str, flat: torch.Tensor, k: int):
+    """Support selection of the sparse wire: ``topk`` keeps the k
+    largest-|.| coordinates, with ``jax.lax.top_k``'s tie rule; indices
+    ascending."""
+    p = flat.shape[0]
+    if mode not in COMPRESSORS[1:]:
+        raise ValueError(f"unknown sparsifier {mode!r}; have {COMPRESSORS[1:]}")
+    if mode == "randk":
+        raise NotImplementedError(
+            "randk draws its support from jax.random and needs RNG parity "
+            "(ROADMAP.md queue 1: RNG parity)")
+    if k <= 0:
+        return SparseSelection(
+            torch.zeros(0, dtype=torch.int64, device=flat.device),
+            torch.zeros(0, dtype=F32, device=flat.device))
+    if k >= p:
+        return SparseSelection(torch.arange(p, device=flat.device), flat)
+    idx = _topk_support(flat, k)
+    return SparseSelection(idx, flat[idx])
+
+
+def scatter_selection(sel: SparseSelection, vals, p: int) -> torch.Tensor:
+    """Dense flat vector with ``vals`` at ``sel.idx``, zeros elsewhere."""
+    out = torch.zeros(p, dtype=F32, device=vals.device)
+    out[sel.idx] = vals
+    return out
+
+
+def sparse_grid(vals: torch.Tensor, bits: int):
+    """``(lo, hi)``, the sign-magnitude grid's endpoints (float32 0-d, the
+    two wire sidecars): min and max of |v|, or both the mean |v| at b=1.
+    The mean reduces in torch's order, so at b=1 the endpoints agree with
+    the reference to float32 reduction accuracy, not bitwise."""
+    if vals.numel() == 0:
+        z = torch.zeros((), dtype=F32, device=vals.device)
+        return z, z
+    a = vals.to(F32).abs()
+    if bits == 1:
+        mu = a.mean()
+        return mu, mu
+    return a.amin(), a.amax()
+
+
+def grid_step(lo, hi, bits: int) -> torch.Tensor:
+    """``(hi - lo) * f32(1 / max(L, 1))`` with ``L = 2^(b-1) - 1``: the
+    reference's ``(hi - lo) / max(L, 1)`` as XLA evaluates it under jit."""
+    return (hi - lo) * inv_levels(bits)
+
+
+def inv_levels(bits: int) -> float:
+    """``f32(1 / max(L, 1))``, folded in double and rounded once."""
+    L = 2 ** (bits - 1) - 1
+    return float(torch.tensor(1.0 / max(L, 1), dtype=F32))
+
+
+def reference_sparse_quantize(vals, lo, hi, bits: int):
+    """``(codes, deq)`` on the survivors: ``codes = (neg << (b-1)) | mag``
+    with ``mag = clip(floor((|v| - lo) / step + 1/2), 0, L)`` (0 where
+    ``step <= 0``) and ``deq = +-fma(mag, step, lo)``."""
+    L = 2 ** (bits - 1) - 1
+    v = vals.to(F32)
+    a = v.abs()
+    neg = v < 0
+    step = grid_step(lo, hi, bits)
+    live = step > 0
+    safe = torch.where(live, step, torch.ones_like(step))
+    mag = torch.floor((a - lo) / safe + 0.5).clamp(0, L)
+    mag = torch.where(live, mag, torch.zeros_like(mag))
+    codes = (neg.to(torch.uint8) << (bits - 1)) | mag.to(torch.uint8)
+    x = fma_f32(mag, step, lo)
+    return codes, torch.where(neg, -x, x)
+
+
+def sparse_dequantize(codes, lo, hi, bits: int) -> torch.Tensor:
+    """Receiver-side inverse of the code map (uint8 codes to float32)."""
+    L = 2 ** (bits - 1) - 1
+    mag = (codes & L).to(F32)
+    neg = (codes >> (bits - 1)).to(F32)
+    x = fma_f32(mag, grid_step(lo, hi, bits), lo)
+    return (1.0 - 2.0 * neg) * x
+
+
+class ErrorState(NamedTuple):
+    """Per-worker error-feedback residual ``e_m``: a list of W pytrees, or
+    ``None`` unless ``StrategyConfig.error_feedback``."""
+    residual: Optional[list]
+
+
+def empty_error_state() -> ErrorState:
+    return ErrorState(None)
+
+
+def init_error_state(error_feedback: bool, grad_template,
+                     n_workers: int) -> ErrorState:
+    """Zero residual per worker, on the template's device."""
+    if not error_feedback:
+        return ErrorState(None)
+    return ErrorState([tree_map(lambda l: torch.zeros(l.shape, dtype=F32,
+                                                      device=l.device),
+                                grad_template) for _ in range(n_workers)])

@@ -9,7 +9,9 @@ reference runs it as a ``lax.scan`` body over a vmapped worker axis; here
 P parameters and W workers holds about (W + 7) float32 copies of P at its
 peak: theta, W qhat, the server aggregate, the running sum of the
 gradients (for ``grad_norm_sq``), the running sum of the committed deltas,
-and the worker in hand's gradient, delta and q_new.
+and the worker in hand's gradient, delta and q_new.  Error feedback adds
+the W residuals and, for the worker in hand, the corrected gradient and
+the sparse wire's flat copies (about 2W + 10 copies in all).
 
 Gradient sources: :class:`FullBatchSource` (paper Table 2) and
 :class:`AccumulatingSource` in ``deterministic=True`` mode (the LM worker,

@@ -14,14 +14,69 @@ Bit-identity with the JAX reference (which always runs under ``jit``):
   done in float64 and rounded to f32: ``f32(2 tau R) * q`` (q < 256) and
   the subtraction of ``R`` span fewer than 53 bits, so the double result is
   exact and its one rounding equals the FMA's.
+* Where the operands can span more than 53 bits (the sparse grid's
+  ``lo + mag * step`` with ``lo`` far below ``step``, the error-feedback
+  injection ``g + eta * e``), :func:`fma_f32` rounds once by rounding the
+  double sum to odd first.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..tree import tree_leaves, tree_map
 
 F32 = torch.float32
+
+
+_FMA_CHUNK = 1 << 24   # elements per float64 pass of fma_f32
+
+
+def _fma_f32_flat(a, b, c) -> torch.Tensor:
+    p = a.double() * b.double()          # exact: two 24-bit significands
+    c = c.double()
+    s = p + c
+    # TwoSum: p + c == s + err exactly
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    # round to odd: an inexact sum moves to the odd one of its two double
+    # neighbours, so the rounding to float32 below happens once
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where(fix, torch.nextafter(s, toward), s)
+    return s.to(F32)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32: what a fused multiply-add
+    gives, and what XLA emits when it contracts a multiply and an add under
+    jit.  Each operand is a float32 tensor of the output's shape or a
+    scalar (a Python float is rounded to float32 first, as JAX's weak types
+    are).  The float64 work runs in chunks, so its temporaries stay small."""
+    dev = next((x.device for x in (a, b, c) if isinstance(x, torch.Tensor)),
+               None)
+    a, b, c = (torch.as_tensor(x, dtype=F32, device=dev) for x in (a, b, c))
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    out = torch.empty(shape, dtype=F32, device=dev)
+
+    def flat(t):
+        if t.dim() == 0:
+            return lambda j: t
+        if t.shape != shape:
+            raise ValueError(f"fma_f32 operand {tuple(t.shape)} is neither a "
+                             f"scalar nor of the output's shape {shape}")
+        v = t.reshape(-1)
+        return lambda j: v[j]
+
+    fa, fb, fc = flat(a), flat(b), flat(c)
+    fo = out.reshape(-1)
+    for i in range(0, fo.numel(), _FMA_CHUNK):
+        j = slice(i, i + _FMA_CHUNK)
+        fo[j] = _fma_f32_flat(fa(j), fb(j), fc(j))
+    return out
 
 
 def tree_inf_norm(tree) -> torch.Tensor:
@@ -85,10 +140,14 @@ def quantize_codes(d: torch.Tensor, R: torch.Tensor, bits: int) -> torch.Tensor:
     return q.to(torch.uint8)
 
 
-def dequantize_leaf(q: torch.Tensor, R: torch.Tensor, bits: int) -> torch.Tensor:
+def dequantize_leaf(q: torch.Tensor, R: torch.Tensor, bits: int = None, *,
+                    two_tau: torch.Tensor = None) -> torch.Tensor:
     """``delta = 2 tau R q - R`` rounded once (see the module docstring);
-    0 where ``R == 0``."""
-    denom = two_tau_f32(bits, R.device) * R
+    0 where ``R == 0``.  ``two_tau`` (float32) replaces ``f32(2 tau(bits))``
+    for a width selected at run time."""
+    if two_tau is None:
+        two_tau = two_tau_f32(bits, R.device)
+    denom = two_tau.to(R.device) * R
     d = (denom.double() * q.double() - R.double()).to(F32)
     return torch.where(R > 0, d, torch.zeros_like(d))
 
@@ -151,13 +210,15 @@ def unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return lanes.reshape(-1)
 
 
-def pad_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
-    """Pad a flat code vector to whole bytes with the midpoint code
-    (``docs/wire-format.md``, padding)."""
+def pad_codes(q: torch.Tensor, bits: int, mid: int = None) -> torch.Tensor:
+    """Pad a flat code vector to whole bytes of ``bits``-bit lanes with the
+    midpoint code ``2^b / 2`` (``docs/wire-format.md``, padding), or with
+    ``mid``."""
     pad = (-q.numel()) % (8 // bits)
     if not pad:
         return q
-    mid = torch.full((pad,), 2**bits // 2, dtype=torch.uint8, device=q.device)
+    mid = torch.full((pad,), 2**bits // 2 if mid is None else mid,
+                     dtype=torch.uint8, device=q.device)
     return torch.cat([q.reshape(-1), mid])
 
 
@@ -170,3 +231,15 @@ def upload_bits(p: int, bits, *, n_radii: int = 1, bit_sidecar: bool = False):
 def dense_bits(p: int) -> int:
     """Uncompressed float32 upload cost (GD / LAG per-round cost)."""
     return 32 * p
+
+
+def index_bits(p: int) -> int:
+    """Bits to address one of ``p`` coordinates: ``ceil(log2 p)``."""
+    return max(1, int(math.ceil(math.log2(max(p, 2)))))
+
+
+def sparse_upload_bits(p: int, k: int, bits, *, n_radii: int = 1):
+    """Wire cost of one sparse upload (EF-LAQ): ``32 * n_radii`` sidecar
+    bits plus, per surviving coordinate, its ``ceil(log2 p)``-bit index and
+    its b-bit code (``k`` is static, so no count sidecar)."""
+    return 32 * n_radii + k * (bits + index_bits(p))

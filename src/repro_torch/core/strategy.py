@@ -15,7 +15,12 @@ gradient, delta and q_new at a time.  The skip decision is taken on the
 host (one sync per worker), and a skipped worker's buffers are simply not
 committed instead of being selected against zeros.
 
-Features of the reference state machine that are not ported yet raise
+Ported branches of ``worker_update``: dense (gd/lag), fixed-width
+quantized, adaptive width (A-LAQ, ``bit_schedule``), the sparse top-k wire
+(``compressor="topk"``) and error feedback (``error_feedback``, with the
+sparse or the dense wire).  Features of the reference state machine that
+are not ported yet (rand-k, participation, lazy rules other than 7a,
+SVRG, faults and defenses, robust aggregators, bf16 state) raise
 ``NotImplementedError`` from :func:`check_supported`, naming their ROADMAP
 item.
 """
@@ -26,10 +31,13 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..tree import tree_leaves, tree_map
-from .adaptive import EtaSchedule
+from .adaptive import BitSchedule, EtaSchedule, select_bits
+from .compressors import (COMPRESSORS, ErrorState, init_error_state,
+                          static_k)
 from .criterion import CriterionConfig, push_history, should_skip
-from .quantize import dense_bits, tree_size, tree_sq_norm, upload_bits
-from .wire import get_backend
+from .quantize import (dense_bits, fma_f32, sparse_upload_bits, tree_size,
+                       tree_sq_norm, upload_bits)
+from .wire import get_backend, sparse_roundtrip
 
 F32 = torch.float32
 KINDS = ("gd", "qgd", "lag", "laq")
@@ -45,7 +53,7 @@ class StrategyConfig(NamedTuple):
     per_leaf_radius: bool = False   # paper: one global R; True = bucketed
     first_round_upload: bool = True  # init clocks at t_bar: round 1 is dense
     state_bf16: bool = False        # qhat/server_agg in bf16 (not ported)
-    bit_schedule: Optional[object] = None  # adaptive widths (not ported)
+    bit_schedule: Optional[BitSchedule] = None  # adaptive widths (A-LAQ)
     wire_backend: str = "reference"  # "reference" | "fused" (core/wire.py)
     lazy_rule: str = "laq7a"        # only the paper's eq. 7a is ported
     lasg: Optional[object] = None   # LASG constants (lazy rules not ported)
@@ -56,10 +64,10 @@ class StrategyConfig(NamedTuple):
     participation_p: float = 1.0
     max_delay: int = 0
     participation_seed: int = 0
-    compressor: str = "none"        # sparsifying compressors not ported
-    compressor_k: float = 0.25
-    error_feedback: bool = False
-    ef_damping: float = 0.5
+    compressor: str = "none"        # "topk" sparse wire; "randk" not ported
+    compressor_k: float = 0.25      # kept fraction, k = static_k(frac, p)
+    error_feedback: bool = False    # EF-LAQ residual in CommState.error
+    ef_damping: float = 0.5         # g_eff = g + eta * e
     compressor_seed: int = 0
     markov_sojourn: float = 8.0
     faults: Optional[object] = None   # fault injection (not ported)
@@ -75,17 +83,39 @@ class StrategyConfig(NamedTuple):
     def lazy(self) -> bool:
         return self.kind in ("lag", "laq")
 
+    @property
+    def adaptive(self) -> bool:
+        return (self.quantized and self.bit_schedule is not None
+                and self.bit_schedule.adaptive)
+
+    @property
+    def compressed(self) -> bool:
+        return self.compressor != "none"
+
+    @property
+    def effective_bits(self) -> int:
+        """Width of the fixed-width path (a constant schedule routes here,
+        so it is bit-exact with fixed-width LAQ)."""
+        if self.bit_schedule is not None and not self.bit_schedule.adaptive:
+            return self.bit_schedule.bits
+        return self.bits
+
 
 def check_supported(cfg: StrategyConfig):
     """Raise for a configuration this slice of the port cannot run."""
     if cfg.kind not in KINDS:
         raise ValueError(f"unknown kind {cfg.kind!r}; have {KINDS}")
+    if cfg.compressor not in COMPRESSORS:
+        raise ValueError(f"unknown compressor {cfg.compressor!r}; have "
+                         f"{COMPRESSORS}")
+    if (cfg.compressed or cfg.error_feedback) and not (
+            cfg.quantized and not cfg.adaptive):
+        raise ValueError("the compressor pipeline / error feedback require "
+                         "a fixed-bit quantized kind (qgd / laq)")
     gated = [
         (cfg.lazy and cfg.lazy_rule != "laq7a", "Lazy rules and SVRG"),
         (cfg.grad_mode != "sgd", "Lazy rules and SVRG"),
-        (cfg.bit_schedule is not None, "Adaptive width"),
-        (cfg.compressor != "none" or cfg.error_feedback,
-         "Compressors and EF-LAQ"),
+        (cfg.compressor == "randk", "RNG parity"),
         (cfg.participation != "full", "Participation"),
         (cfg.faults is not None or cfg.defense is not None, "Robustness"),
         (cfg.aggregator != "sum", "Robustness"),
@@ -100,11 +130,12 @@ def check_supported(cfg: StrategyConfig):
 
 
 class CommState(NamedTuple):
-    """LAQ state.  ``qhat`` is a list of W per-worker pytrees on the
-    parameters' device, ``server_agg`` one pytree there; the small
-    bookkeeping lives on the host as float32/int CPU tensors and ints.
+    """LAQ state.  ``qhat`` (and ``error.residual`` under error feedback)
+    is a list of W per-worker pytrees on the parameters' device,
+    ``server_agg`` one pytree there; the small bookkeeping lives on the
+    host as float32/int CPU tensors and ints.
 
-    :func:`aggregate` updates ``qhat`` (the list) and ``server_agg`` in
+    :func:`aggregate` updates the per-worker lists and ``server_agg`` in
     place to hold memory at one copy each.
     """
     qhat: list              # [W] last uploaded quantized gradient Q_m(theta_hat)
@@ -116,6 +147,8 @@ class CommState(NamedTuple):
     total_bits: torch.Tensor  # float32, as in the reference
     total_uploads: int
     step: int
+    R_anchor: torch.Tensor  # [W] anchor radius of the "rel" adaptive thresholds
+    error: ErrorState = ErrorState(None)  # [W] EF residuals (error_feedback)
 
 
 class RoundMetrics(NamedTuple):
@@ -148,12 +181,15 @@ def init_comm_state(grad_template, n_workers: int,
         total_bits=torch.zeros((), dtype=F32),
         total_uploads=0,
         step=0,
+        R_anchor=torch.zeros(n_workers, dtype=F32),
+        error=init_error_state(cfg.error_feedback, grad_template, n_workers),
     )
 
 
 class WorkerOut(NamedTuple):
     """Result of :func:`worker_update`.  ``delta_masked`` is ``None`` when
-    the worker did not commit (the reference's all-zero contribution)."""
+    the worker did not commit (the reference's all-zero contribution), and
+    so is ``error_new`` then or without error feedback."""
     delta_masked: object
     qhat_new: object
     eps_hat_sq_new: torch.Tensor
@@ -161,24 +197,69 @@ class WorkerOut(NamedTuple):
     uploaded: bool          # the worker sent a payload
     bits_m: torch.Tensor    # float32 wire bits of this worker this round
     R: torch.Tensor         # max leaf radius (0 for unquantized)
-    width_m: float          # static width, 32 for dense uploads
+    width_m: float          # width this round, 32 for dense uploads
     committed: bool         # the server applied the payload (== uploaded)
+    R_anchor_new: torch.Tensor  # updated "rel" threshold anchor
+    error_new: object = None    # the new EF residual, when committed
 
 
 def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
-                  n_workers: int, cfg: StrategyConfig) -> WorkerOut:
-    """One worker's quantize + skip decision (quantized, dense and laq7a
-    branches of the reference)."""
+                  n_workers: int, cfg: StrategyConfig, *, bits_spent_m=0.0,
+                  step: int = 0, R_anchor_m=None,
+                  error_m=None) -> WorkerOut:
+    """One worker's width selection + quantize + skip decision (dense,
+    fixed-width, adaptive, sparse and error-feedback branches of the
+    reference, laq7a rule).  ``error_m`` is the worker's residual pytree
+    (error feedback only); the new residual ``g_eff - q_new`` is formed in
+    place in ``g_eff``, which this function owns."""
     check_supported(cfg)
     p = tree_size(grad_m)
     n_sidecars = len(tree_leaves(grad_m)) if cfg.per_leaf_radius else 1
-    if cfg.quantized:
-        rt = get_backend(cfg.wire_backend).roundtrip(
-            grad_m, qhat_m, cfg.bits, cfg.per_leaf_radius)
+    R_anchor_new = (torch.zeros((), dtype=F32) if R_anchor_m is None
+                    else R_anchor_m)
+    if cfg.error_feedback:
+        # g_eff = g + eta e, one FMA as XLA contracts it
+        g_eff = tree_map(lambda g, e: fma_f32(cfg.ef_damping, e, g.to(F32)),
+                         grad_m, error_m)
+        grad_m = None       # the branches below read g_eff only
+    else:
+        g_eff = grad_m
+    backend = get_backend(cfg.wire_backend)
+    if cfg.adaptive:
+        sched = cfg.bit_schedule
+        # pass 1: the radii (the fused backend materializes no diff), then
+        # the width on the host, then pass 2 at that width
+        diff, R_tree, R = backend.innovation(grad_m, qhat_m,
+                                             cfg.per_leaf_radius)
+        width, onehot, R_anchor_new = select_bits(
+            sched, R.cpu(), bits_spent_m, step, p, n_radii=n_sidecars,
+            R_anchor=R_anchor_new)
+        q_new, delta, err_sq, innovation_sq = backend.adaptive_roundtrip(
+            grad_m, qhat_m, diff, R_tree, sched.grid, onehot)
+        del diff
+        bits_if_upload = upload_bits(p, width, n_radii=n_sidecars,
+                                     bit_sidecar=True)
+        width_m = float(width)
+    elif cfg.compressed:
+        k = static_k(cfg.compressor_k, p)
+        srt = sparse_roundtrip(backend, g_eff, qhat_m, cfg.effective_bits, k,
+                               cfg.compressor)
+        q_new, delta, R = srt.q_new, srt.delta, srt.R
+        err_sq, innovation_sq = srt.err_sq, srt.innovation_sq
+        del srt
+        # two f32 sidecars: the (lo, hi) grid endpoints
+        bits_if_upload = float(sparse_upload_bits(p, k, cfg.effective_bits,
+                                                  n_radii=2))
+        width_m = float(cfg.effective_bits)
+    elif cfg.quantized:
+        rt = backend.roundtrip(g_eff, qhat_m, cfg.effective_bits,
+                               cfg.per_leaf_radius)
         q_new, delta, R = rt.q_new, rt.delta, rt.R_max
         err_sq, innovation_sq = rt.err_sq, rt.innovation_sq
-        bits_if_upload = float(upload_bits(p, cfg.bits, n_radii=n_sidecars))
-        width_m = float(cfg.bits)
+        del rt
+        bits_if_upload = float(upload_bits(p, cfg.effective_bits,
+                                           n_radii=n_sidecars))
+        width_m = float(cfg.effective_bits)
     else:
         q_new = tree_map(lambda g: g.to(F32), grad_m)
         delta = tree_map(lambda g, q: g - q, q_new, qhat_m)
@@ -198,14 +279,19 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
     uploaded = not skip
     committed = uploaded
     bits_m = (torch.tensor(float(uploaded), dtype=F32)
-              * torch.tensor(bits_if_upload, dtype=F32))
+              * torch.as_tensor(bits_if_upload, dtype=F32))
+    error_new = None
+    if cfg.error_feedback and committed:
+        # e_new = g_eff - q_new: the mass this round's compress dropped
+        error_new = tree_map(lambda g, qn: g.sub_(qn), g_eff, q_new)
+    del g_eff
     return WorkerOut(
         delta_masked=delta if committed else None,
         qhat_new=q_new if committed else qhat_m,
         eps_hat_sq_new=err_sq if committed else eps_hat_sq_m,
         clock_new=0 if committed else int(clock_m) + 1,
         uploaded=uploaded, bits_m=bits_m, R=R.cpu(), width_m=width_m,
-        committed=committed)
+        committed=committed, R_anchor_new=R_anchor_new, error_new=error_new)
 
 
 def _add_(acc, tree):
@@ -223,7 +309,8 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
     the new server aggregate.  The caller applies ``theta <- theta - alpha
     * agg_grad`` and then :func:`finalize_step`.
 
-    ``state.qhat`` and ``state.server_agg`` are updated in place.
+    ``state.qhat``, ``state.error.residual`` and ``state.server_agg`` are
+    updated in place.
     """
     n_workers = len(state.qhat)
     # sum_m delta_masked first, then agg + sum, as the reference's
@@ -231,14 +318,21 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
     # additions in worker order (a skipped worker adds an exact zero)
     dsum = tree_map(torch.zeros_like, state.server_agg)
     eps, clocks = state.eps_hat_sq.clone(), state.clocks.clone()
+    anchors = state.R_anchor.clone()
+    residual = state.error.residual
     bits_m, radii, widths, ups = [], [], [], []
     for m in range(n_workers):
         wo = worker_update(grad_of(m), state.qhat[m], state.eps_hat_sq[m],
                            state.clocks[m], state.theta_hist, alpha,
-                           n_workers, cfg)
+                           n_workers, cfg, bits_spent_m=state.bits_spent[m],
+                           step=state.step, R_anchor_m=state.R_anchor[m],
+                           error_m=None if residual is None else residual[m])
         if wo.committed:
             _add_(dsum, wo.delta_masked)
             state.qhat[m] = wo.qhat_new
+        if wo.error_new is not None:
+            residual[m] = wo.error_new
+        anchors[m] = wo.R_anchor_new
         eps[m] = wo.eps_hat_sq_new
         clocks[m] = wo.clock_new
         bits_m.append(wo.bits_m)
@@ -260,7 +354,7 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
                            radius_max=torch.stack(radii).amax(),
                            mean_bits=mean_bits)
     new_state = state._replace(
-        eps_hat_sq=eps, clocks=clocks,
+        eps_hat_sq=eps, clocks=clocks, R_anchor=anchors,
         bits_spent=state.bits_spent + bits_m,
         total_bits=state.total_bits + bits,
         total_uploads=state.total_uploads + uploads,

@@ -1,12 +1,19 @@
-"""Wire backends, dense part: port of ``repro/core/wire.py``.
+"""Wire backends: port of ``repro/core/wire.py`` (send side).
 
-* ``reference`` -- the staged path of :mod:`repro_torch.core.quantize`.
+* ``reference`` -- the staged path of :mod:`repro_torch.core.quantize` and
+  :mod:`repro_torch.core.adaptive`.
 * ``fused`` -- the two-pass pipeline: pass 1 reduces each leaf's radius
   with :func:`repro_torch.kernels.ops.absmax`, pass 2 emits codes, the
   packed payload, delta, q_new and both criterion moments in one sweep
-  with :func:`repro_torch.kernels.ops.quantize_pack_fused`.  The dispatch
-  layer picks the CUDA kernel or its plain version by the tensors' device,
-  so the backend has no lowering option of its own.
+  with :func:`repro_torch.kernels.ops.quantize_pack_fused`, or at a width
+  chosen per round with :func:`~repro_torch.kernels.ops.quantize_pack_adaptive`.
+  The dispatch layer picks the CUDA kernel or its plain version by the
+  tensors' device, so the backend has no lowering option of its own.
+
+The sparse wire (EF-LAQ, :func:`sparse_roundtrip`) shares its selection,
+grid, scatter and payload code between the backends; only the quantize
+map on the survivors goes through the backend
+(:func:`~repro_torch.kernels.ops.sparse_quantize_pack` on the fused one).
 
 Contract (as in the reference): codes, radii, delta and q_new are
 bit-identical across backends; the moments agree to float32 reduction
@@ -21,11 +28,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
-from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_flatten, tree_leaves, tree_unflatten
+from .adaptive import staged_adaptive_pass
+from .compressors import (_flat, _unflat, reference_sparse_quantize,
+                          scatter_selection, select_support, sparse_grid)
 from .quantize import (innovation, pack_codes, pad_codes, roundtrip_parts,
                        tree_sq_norm)
-
-F32 = torch.float32
 
 
 class WireRoundtrip(NamedTuple):
@@ -45,34 +53,41 @@ def _not_ported(what: str, item: str):
 
 
 class WireBackend:
-    """Interface: radius reduction and the quantize roundtrip.  The
-    adaptive, sparse, per-leaf streamed and receive-side methods of the
-    reference interface raise until their ROADMAP items land."""
+    """Interface: radius reduction, the dense quantize roundtrip at a fixed
+    or a per-round width, and the sparse wire's quantize map.  The
+    per-leaf streamed methods of the sharded step and the receive side
+    raise until their ROADMAP items land."""
 
     name = "?"
 
     def innovation(self, grad, qhat, per_leaf: bool = False):
-        """``(diff, R_tree, R_max)``, same contract as quantize.innovation."""
+        """``(diff, R_tree, R_max)``, same contract as quantize.innovation
+        (the fused backend returns ``diff=None``: nothing of it reads the
+        diff)."""
         raise NotImplementedError
 
     def roundtrip(self, grad, qhat, bits: int, per_leaf: bool = False,
                   with_payload: bool = False) -> WireRoundtrip:
         raise NotImplementedError
 
+    def adaptive_roundtrip(self, grad, qhat, diff, R_tree, grid, onehot):
+        """Dynamic-width roundtrip ``(q_new, delta, err_sq, innovation_sq)``
+        at the width ``onehot`` selects from the static ``grid``; ``diff``
+        and ``R_tree`` come from this backend's :meth:`innovation`."""
+        raise NotImplementedError
+
+    def sparse_quantize(self, vals, lo, hi, bits: int):
+        """``(codes uint8 [k], deq f32 [k])`` on the gathered survivors."""
+        raise NotImplementedError
+
     def leaf_quantize(self, g, qh, R, bits: int):
         _not_ported("the streamed sharded wire", "Sharded step")
 
     def leaf_quantize_adaptive(self, g, qh, R, grid, onehot, t_sel):
-        _not_ported("the adaptive streamed wire", "Adaptive width")
-
-    def adaptive_roundtrip(self, grad, qhat, diff, R_tree, grid, onehot):
-        _not_ported("the adaptive roundtrip", "Adaptive width")
+        _not_ported("the adaptive streamed wire", "Sharded step")
 
     def dequant_acc(self, packed, R, keep, bits: int, n: int, acc=None):
         _not_ported("the receive side (dequant_acc)", "Receive side of the wire")
-
-    def sparse_quantize(self, vals, lo, hi, bits: int):
-        _not_ported("the sparse wire", "Compressors and EF-LAQ")
 
 
 class ReferenceWire(WireBackend):
@@ -94,6 +109,12 @@ class ReferenceWire(WireBackend):
         return WireRoundtrip(q_new, delta, R_tree, R_max, err_sq,
                              innovation_sq, payload)
 
+    def adaptive_roundtrip(self, grad, qhat, diff, R_tree, grid, onehot):
+        return staged_adaptive_pass(grad, qhat, diff, R_tree, grid, onehot)
+
+    def sparse_quantize(self, vals, lo, hi, bits):
+        return reference_sparse_quantize(vals, lo, hi, bits)
+
 
 class FusedWire(WireBackend):
     """The two-pass pipeline through the kernel dispatch layer."""
@@ -111,13 +132,12 @@ class FusedWire(WireBackend):
         return (maxes if per_leaf else [R for _ in g_leaves]), R
 
     def innovation(self, grad, qhat, per_leaf=False):
-        """Radius via the pass-1 reduction; the diff is materialized here
-        (the reference keeps it a lazy expression for the adaptive
-        quantizer, which is not ported yet)."""
-        diff = tree_map(lambda g, q: g.to(F32) - q.to(F32), grad, qhat)
+        """Radius via the pass-1 reduction, and ``diff=None``: pass 2
+        recomputes ``g - qh`` inside its sweep, so the diff is never
+        materialized (a full model copy per worker)."""
         g_leaves, treedef = tree_flatten(grad)
         R_leaves, R_max = self._radii(g_leaves, tree_leaves(qhat), per_leaf)
-        return diff, tree_unflatten(treedef, R_leaves), R_max
+        return None, tree_unflatten(treedef, R_leaves), R_max
 
     def roundtrip(self, grad, qhat, bits, per_leaf=False, with_payload=False):
         if bits not in (1, 2, 4, 8):
@@ -148,6 +168,26 @@ class FusedWire(WireBackend):
             R_max=R_max, err_sq=err_sq, innovation_sq=inn_sq,
             payload=payload if with_payload else None)
 
+    def adaptive_roundtrip(self, grad, qhat, diff, R_tree, grid, onehot):
+        """Adaptive pass 2 as one sweep per leaf; ``diff`` is unused."""
+        grid = tuple(grid)
+        g_leaves, treedef = tree_flatten(grad)
+        delta_leaves, qnew_leaves, err_parts, inn_parts = [], [], [], []
+        for g, qh, R in zip(g_leaves, tree_leaves(qhat), tree_leaves(R_tree)):
+            _, dl, qn, esq, isq = ops.quantize_pack_adaptive(g, qh, R, onehot,
+                                                             grid)
+            delta_leaves.append(dl.reshape(g.shape))
+            qnew_leaves.append(qn.reshape(g.shape))
+            err_parts.append(esq)
+            inn_parts.append(isq)
+        return (tree_unflatten(treedef, qnew_leaves),
+                tree_unflatten(treedef, delta_leaves),
+                torch.stack(err_parts).sum(), torch.stack(inn_parts).sum())
+
+    def sparse_quantize(self, vals, lo, hi, bits):
+        _, codes, deq = ops.sparse_quantize_pack(vals, lo, hi, bits)
+        return codes, deq
+
 
 _BACKENDS = {
     "reference": ReferenceWire(),
@@ -164,3 +204,54 @@ def get_backend(name) -> WireBackend:
     except KeyError:
         raise ValueError(
             f"unknown wire backend {name!r}; have {sorted(_BACKENDS)}") from None
+
+
+class SparseRoundtrip(NamedTuple):
+    """One worker's sparse quantize step."""
+    q_new: object           # qhat + delta (views into one flat vector)
+    delta: object           # sparse-valued dequantized innovation (views)
+    lo: torch.Tensor        # grid floor sidecar (f32 0-d)
+    R: torch.Tensor         # grid ceiling sidecar, max |survivor|
+    err_sq: torch.Tensor    # support-restricted quantization error
+    innovation_sq: torch.Tensor  # ||delta||^2
+    idx: torch.Tensor       # [k] ascending support (the index payload)
+    codes: torch.Tensor     # uint8 [k] b-bit codes
+    payload: Optional[torch.Tensor]  # packed code bytes (with_payload only)
+
+
+def sparse_roundtrip(backend, grad, qhat, bits: int, k: int, mode: str,
+                     with_payload: bool = False) -> SparseRoundtrip:
+    """Sparsify-then-quantize over the flattened innovation ``grad -
+    qhat`` (``grad`` is the EF-corrected gradient): k coordinates survive
+    (``mode="topk"``), are quantized on the sign-magnitude b-bit grid over
+    their ``[lo, hi]``, and are scattered back into a dense delta.
+
+    ``err_sq`` is the support-restricted error ``sum_S (d_i - deq_i)^2``
+    (the dropped tail is the residual's, not wire noise) and
+    ``innovation_sq`` is ``||deq||^2``, which equals ``||delta||^2``.
+
+    Memory: the innovation is formed in place in the flat copy of
+    ``grad`` and dropped once the survivors are gathered; q_new is formed
+    in place in the flat copy of ``qhat``.  So at its peak the roundtrip
+    holds two flat copies, |d| and a mask, and returns q_new and delta as
+    views of two flat vectors.
+    """
+    backend = get_backend(backend)
+    d, meta = _flat(grad)
+    q_new, _ = _flat(qhat)
+    d.sub_(q_new)                       # the innovation, in place
+    sel = select_support(mode, d, k)
+    p = d.shape[0]
+    del d
+    lo, hi = sparse_grid(sel.vals, bits)
+    codes, deq = backend.sparse_quantize(sel.vals, lo, hi, bits)
+    delta = scatter_selection(sel, deq, p)
+    q_new.add_(delta)                   # qhat + delta, in place
+    err = sel.vals - deq
+    payload = (pack_codes(pad_codes(codes, bits), bits) if with_payload
+               else None)
+    return SparseRoundtrip(q_new=_unflat(q_new, meta),
+                           delta=_unflat(delta, meta), lo=lo, R=hi,
+                           err_sq=(err * err).sum(),
+                           innovation_sq=(deq * deq).sum(), idx=sel.idx,
+                           codes=codes, payload=payload)

@@ -29,7 +29,34 @@
 //   of the inputs); a tail byte with fewer than 8/b real codes carries the
 //   midpoint code in its unused lanes (docs/wire-format.md).
 //
-// Rounding, held bit for bit against the JAX reference under jit:
+// laq_quantize_pack with lane_bits = max(grid) replaces
+// quantize_pack_adaptive_pallas (same file):
+//   the A-LAQ pass 2.  The width b is chosen per worker and round on the
+//   host (select_bits), so the wrapper picks the template arm <b, max(grid)>
+//   of the same body as the fixed-width kernel, which writes the b-bit codes
+//   into max(grid)-bit lanes.  A pinned width is kernel 2 at that width, bit
+//   for bit, because it is kernel 2's body.  Bound: bytes: it reads 8 B and
+//   writes 8 + max(grid)/8 B per element.  The tail byte's unused lanes
+//   carry the b-bit midpoint code.
+//
+// laq_sparse_quantize_pack replaces sparse_quant_pack_pallas (same file):
+//   the sign-magnitude grid on the k gathered top-k survivors (EF-LAQ):
+//   codes = (neg << (b-1)) | mag, deq = +-(lo + mag * step), and the codes
+//   packed at b.  Bound: bytes: it reads 4 B and writes 1 + 4 + b/8 B per
+//   survivor.  Design: the group of 8 survivors per thread of the pass-2
+//   kernel (b whole payload bytes, one store, no shared bytes), 16-byte
+//   loads and deq stores, one 8-byte store of the 8 codes.  lo and hi are
+//   read from the device (they are reductions over the survivors).  The
+//   arithmetic is the reference's under jit, where XLA turns the constant
+//   division into a multiply by the reciprocal and contracts into an FMA:
+//     step = (hi - lo) * f32(1 / max(L, 1))      (reciprocal from the host)
+//     mag  = clamp(floor((|v| - lo) / step + 0.5), 0, L), 0 if !(step > 0)
+//     deq  = +-fma(mag, step, lo)
+//   The tail byte's unused lanes carry the midpoint code 2^b / 2, as the
+//   canonical sparse payload does.
+//
+// Rounding of the dense kernels, held bit for bit against the JAX
+// reference under jit:
 //   denom = f32(2 tau) * R        (2 tau folded in double on the host)
 //   q     = clamp(floor((d + R) / denom + 0.5), 0, 2^b - 1)   IEEE division
 //   delta = fma(denom, q, -R)     (XLA contracts 2 tau R * q - R to an FMA)
@@ -126,7 +153,9 @@ __device__ __forceinline__ void store_packed(uint8_t* p, uint64_t word) {
   }
 }
 
-template <int BITS>
+// BITS: the code width; LANE: the width of a code's lane in the payload
+// (LANE == BITS for the fixed-width wire, max(grid) for the adaptive one).
+template <int BITS, int LANE>
 __global__ void __launch_bounds__(kThreads)
 quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
                      const float* __restrict__ Rp, float two_tau, int64_t n,
@@ -141,7 +170,7 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
   const float denom = live ? __fmul_rn(two_tau, R) : 1.f;
   const float neg_R = -R;
   const int64_t ngroups = (n + 7) / 8;
-  const int64_t nbytes = (n * BITS + 7) / 8;
+  const int64_t nbytes = (n * LANE + 7) / 8;
   const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
 
@@ -190,7 +219,7 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
       } else {
         code = kMid;                         // pad lanes of the tail byte
       }
-      word |= (uint64_t)code << (BITS * j);
+      word |= (uint64_t)code << (LANE * j);
     }
 
     if (full && aligned) {
@@ -200,7 +229,7 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
       d4[1] = make_float4(dl[4], dl[5], dl[6], dl[7]);
       n4[0] = make_float4(qn[0], qn[1], qn[2], qn[3]);
       n4[1] = make_float4(qn[4], qn[5], qn[6], qn[7]);
-      store_packed<BITS>(packed + gi * BITS, word);
+      store_packed<LANE>(packed + gi * LANE, word);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -209,9 +238,9 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
           qnew[base + j] = qn[j];
         }
       }
-      for (int k = 0; k < BITS; ++k) {
-        if (gi * BITS + k < nbytes)
-          packed[gi * BITS + k] = (uint8_t)(word >> (8 * k));
+      for (int k = 0; k < LANE; ++k) {
+        if (gi * LANE + k < nbytes)
+          packed[gi * LANE + k] = (uint8_t)(word >> (8 * k));
       }
     }
   }
@@ -235,6 +264,86 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
   }
 }
 
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+sparse_quantize_pack_kernel(const float* __restrict__ vals,
+                            const float* __restrict__ lo_p,
+                            const float* __restrict__ hi_p, float inv_levels,
+                            int64_t k, int aligned,
+                            uint8_t* __restrict__ packed,
+                            uint8_t* __restrict__ codes,
+                            float* __restrict__ deq) {
+  constexpr int kL = (1 << (BITS - 1)) - 1;  // magnitude levels above lo
+  constexpr uint32_t kMid = 1u << (BITS - 1);
+  const float lo = lo_p[0];
+  const float step = __fmul_rn(__fsub_rn(hi_p[0], lo), inv_levels);
+  const bool live = step > 0.f;              // false for 0 and NaN
+  const float safe = live ? step : 1.f;
+  const int64_t ngroups = (k + 7) / 8;
+  const int64_t nbytes = (k * BITS + 7) / 8;
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+
+  for (int64_t gi = tid; gi < ngroups; gi += stride) {
+    const int64_t base = gi * 8;
+    const bool full = base + 8 <= k;
+    float v[8];
+    if (full && aligned) {
+      const float4* v4 = reinterpret_cast<const float4*>(vals + base);
+      const float4 a0 = __ldg(v4), a1 = __ldg(v4 + 1);
+      v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
+      v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = base + j < k ? vals[base + j] : 0.f;
+    }
+
+    float dq[8];
+    uint8_t cd[8];
+    uint64_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool neg = v[j] < 0.f;
+      float mag = 0.f;
+      if (live) {
+        mag = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(fabsf(v[j]), lo), safe),
+                               0.5f));
+        mag = fminf(fmaxf(mag, 0.f), (float)kL);
+      }
+      const float x = __fmaf_rn(mag, step, lo);
+      dq[j] = neg ? -x : x;
+      uint32_t code = ((uint32_t)neg << (BITS - 1)) | (uint32_t)mag;
+      cd[j] = (uint8_t)code;
+      if (base + j >= k) code = kMid;        // pad lanes of the tail byte
+      word |= (uint64_t)code << (BITS * j);
+    }
+
+    if (full && aligned) {
+      float4* d4 = reinterpret_cast<float4*>(deq + base);
+      d4[0] = make_float4(dq[0], dq[1], dq[2], dq[3]);
+      d4[1] = make_float4(dq[4], dq[5], dq[6], dq[7]);
+      uint64_t cw = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cw |= (uint64_t)cd[j] << (8 * j);
+      *reinterpret_cast<uint2*>(codes + base) =
+          make_uint2((uint32_t)cw, (uint32_t)(cw >> 32));
+      store_packed<BITS>(packed + gi * BITS, word);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (base + j < k) {
+          deq[base + j] = dq[j];
+          codes[base + j] = cd[j];
+        }
+      }
+      for (int b = 0; b < BITS; ++b) {
+        if (gi * BITS + b < nbytes)
+          packed[gi * BITS + b] = (uint8_t)(word >> (8 * b));
+      }
+    }
+  }
+}
+
 __global__ void sum_partials_kernel(const double* __restrict__ err_part,
                                     const double* __restrict__ inn_part,
                                     int nparts, float* __restrict__ out) {
@@ -251,15 +360,25 @@ __global__ void sum_partials_kernel(const double* __restrict__ err_part,
   }
 }
 
-template <int BITS>
+template <int BITS, int LANE>
 cudaError_t launch_quantize_pack(const float* g, const float* qh,
                                  const float* R, float two_tau, int64_t n,
                                  int aligned, uint8_t* packed, float* delta,
                                  float* qnew, double* err_part,
                                  double* inn_part, int nparts,
                                  cudaStream_t stream) {
-  quantize_pack_kernel<BITS><<<nparts, kThreads, 0, stream>>>(
+  quantize_pack_kernel<BITS, LANE><<<nparts, kThreads, 0, stream>>>(
       g, qh, R, two_tau, n, aligned, packed, delta, qnew, err_part, inn_part);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_sparse(const float* vals, const float* lo, const float* hi,
+                          float inv_levels, int64_t k, int aligned,
+                          uint8_t* packed, uint8_t* codes, float* deq,
+                          int nblocks, cudaStream_t stream) {
+  sparse_quantize_pack_kernel<BITS><<<nblocks, kThreads, 0, stream>>>(
+      vals, lo, hi, inv_levels, k, aligned, packed, codes, deq);
   return cudaGetLastError();
 }
 
@@ -281,31 +400,53 @@ int laq_absmax(const float* g, const float* qh, long long n, int aligned,
 }
 
 // One pass-2 sweep; moments[0] = ||g - q_new||^2, moments[1] = ||delta||^2.
+// bits-wide codes in lane_bits-wide payload lanes (lane_bits >= bits).
 int laq_quantize_pack(const float* g, const float* qh, const float* R,
-                      float two_tau, int bits, long long n, int aligned,
-                      uint8_t* packed, float* delta, float* qnew,
+                      float two_tau, int bits, int lane_bits, long long n,
+                      int aligned, uint8_t* packed, float* delta, float* qnew,
                       double* err_part, double* inn_part, int nparts,
                       float* moments, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (bits) {
-    case 1: err = launch_quantize_pack<1>(g, qh, R, two_tau, n, aligned, packed,
-                                          delta, qnew, err_part, inn_part,
-                                          nparts, s); break;
-    case 2: err = launch_quantize_pack<2>(g, qh, R, two_tau, n, aligned, packed,
-                                          delta, qnew, err_part, inn_part,
-                                          nparts, s); break;
-    case 4: err = launch_quantize_pack<4>(g, qh, R, two_tau, n, aligned, packed,
-                                          delta, qnew, err_part, inn_part,
-                                          nparts, s); break;
-    case 8: err = launch_quantize_pack<8>(g, qh, R, two_tau, n, aligned, packed,
-                                          delta, qnew, err_part, inn_part,
-                                          nparts, s); break;
+#define LAQ_ARM(B, P)                                                        \
+  case (B) * 16 + (P):                                                       \
+    err = launch_quantize_pack<B, P>(g, qh, R, two_tau, n, aligned, packed,  \
+                                     delta, qnew, err_part, inn_part, nparts, \
+                                     s);                                     \
+    break;
+  switch (bits * 16 + lane_bits) {
+    LAQ_ARM(1, 1) LAQ_ARM(1, 2) LAQ_ARM(1, 4) LAQ_ARM(1, 8)
+    LAQ_ARM(2, 2) LAQ_ARM(2, 4) LAQ_ARM(2, 8)
+    LAQ_ARM(4, 4) LAQ_ARM(4, 8)
+    LAQ_ARM(8, 8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LAQ_ARM
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, 32, 0, s>>>(err_part, inn_part, nparts, moments);
   return (int)cudaGetLastError();
+}
+
+// Sparse quantize + pack of k survivors; lo/hi are device scalars.
+int laq_sparse_quantize_pack(const float* vals, const float* lo,
+                             const float* hi, float inv_levels, int bits,
+                             long long k, int aligned, uint8_t* packed,
+                             uint8_t* codes, float* deq, int nblocks,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (bits) {
+    case 1: err = launch_sparse<1>(vals, lo, hi, inv_levels, k, aligned,
+                                   packed, codes, deq, nblocks, s); break;
+    case 2: err = launch_sparse<2>(vals, lo, hi, inv_levels, k, aligned,
+                                   packed, codes, deq, nblocks, s); break;
+    case 4: err = launch_sparse<4>(vals, lo, hi, inv_levels, k, aligned,
+                                   packed, codes, deq, nblocks, s); break;
+    case 8: err = launch_sparse<8>(vals, lo, hi, inv_levels, k, aligned,
+                                   packed, codes, deq, nblocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from ..core.compressors import inv_levels
 from ..core.quantize import tau
 
 SOURCE = Path(__file__).parent / "csrc" / "quant_pack.cu"
@@ -67,9 +68,14 @@ class _Library:
                                    _VP, ctypes.c_int, _VP, _VP]
         lib.laq_absmax.restype = ctypes.c_int
         lib.laq_quantize_pack.argtypes = [
-            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP]
+            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, _VP, _VP, _VP, _VP, _VP,
+            ctypes.c_int, _VP, _VP]
         lib.laq_quantize_pack.restype = ctypes.c_int
+        lib.laq_sparse_quantize_pack.argtypes = [
+            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP]
+        lib.laq_sparse_quantize_pack.restype = ctypes.c_int
         lib.laq_threads_per_block.argtypes = []
         lib.laq_threads_per_block.restype = ctypes.c_int
         self.lib = lib
@@ -119,14 +125,16 @@ def absmax_cuda(g: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_pack_cuda(g: torch.Tensor, qh: torch.Tensor, R: torch.Tensor,
-                       bits: int):
+                       bits: int, lane_bits: int = None):
     """``(packed, delta, q_new, err_sq, innovation_sq)`` for one flat leaf:
-    ``packed`` uint8 ``[ceil(n b / 8)]``, ``delta``/``q_new`` float32
+    ``packed`` uint8 ``[ceil(n lane_bits / 8)]`` (b-bit codes in
+    ``lane_bits``-bit lanes, default b), ``delta``/``q_new`` float32
     ``[n]``, the moments float32 0-d tensors."""
     lib = library()
+    lane_bits = bits if lane_bits is None else lane_bits
     n = g.numel()
     dev = g.device
-    packed = torch.empty(-(-n * bits // 8), dtype=torch.uint8, device=dev)
+    packed = torch.empty(-(-n * lane_bits // 8), dtype=torch.uint8, device=dev)
     delta = torch.empty(n, dtype=torch.float32, device=dev)
     q_new = torch.empty(n, dtype=torch.float32, device=dev)
     nparts = _grid(-(-n // 8), lib.threads)
@@ -134,9 +142,28 @@ def quantize_pack_cuda(g: torch.Tensor, qh: torch.Tensor, R: torch.Tensor,
     moments = torch.empty(2, dtype=torch.float32, device=dev)
     two_tau = float(torch.tensor(2.0 * tau(bits), dtype=torch.float32))
     _check(lib.lib.laq_quantize_pack(
-        g.data_ptr(), qh.data_ptr(), R.data_ptr(), two_tau, bits, n,
-        _aligned(g, qh, packed, delta, q_new), packed.data_ptr(),
+        g.data_ptr(), qh.data_ptr(), R.data_ptr(), two_tau, bits, lane_bits,
+        n, _aligned(g, qh, packed, delta, q_new), packed.data_ptr(),
         delta.data_ptr(), q_new.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), nparts, moments.data_ptr(), _stream(g)),
         "laq_quantize_pack")
     return packed, delta, q_new, moments[0], moments[1]
+
+
+def sparse_quantize_pack_cuda(vals: torch.Tensor, lo: torch.Tensor,
+                              hi: torch.Tensor, bits: int):
+    """``(packed uint8 [ceil(k b / 8)], codes uint8 [k], deq f32 [k])`` for
+    k contiguous float32 survivors on the card; ``lo``/``hi`` float32 0-d
+    tensors there."""
+    lib = library()
+    k = vals.numel()
+    dev = vals.device
+    packed = torch.empty(-(-k * bits // 8), dtype=torch.uint8, device=dev)
+    codes = torch.empty(k, dtype=torch.uint8, device=dev)
+    deq = torch.empty(k, dtype=torch.float32, device=dev)
+    _check(lib.lib.laq_sparse_quantize_pack(
+        vals.data_ptr(), lo.data_ptr(), hi.data_ptr(), inv_levels(bits), bits,
+        k, _aligned(vals, packed, codes, deq), packed.data_ptr(),
+        codes.data_ptr(), deq.data_ptr(), _grid(-(-k // 8), lib.threads),
+        _stream(vals)), "laq_sparse_quantize_pack")
+    return packed, codes, deq

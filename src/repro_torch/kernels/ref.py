@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.quantize import dequantize_leaf, pack_codes, pad_codes, quantize_codes
+from ..core.compressors import reference_sparse_quantize
+from ..core.quantize import (dequantize_leaf, pack_codes, pad_codes,
+                             quantize_codes)
 
 
 def absmax_ref(grad: torch.Tensor, qhat: torch.Tensor) -> torch.Tensor:
@@ -20,17 +22,48 @@ def absmax_ref(grad: torch.Tensor, qhat: torch.Tensor) -> torch.Tensor:
     return d.abs().amax()
 
 
-def quantize_pack_fused_ref(grad: torch.Tensor, qhat: torch.Tensor,
-                            R: torch.Tensor, bits: int):
-    """Pass-2 oracle on one flat leaf: ``(packed, delta, q_new, err_sq,
-    innovation_sq)`` with ``q_new = qhat + delta`` and ``err = grad -
-    q_new``.  ``packed`` holds ``ceil(n b / 8)`` bytes, the tail byte's
-    unused lanes carrying the midpoint code."""
+def _pass2(grad: torch.Tensor, qhat: torch.Tensor, R: torch.Tensor,
+           bits: int):
+    """``(codes, delta, q_new, err_sq, innovation_sq)`` of pass 2 on one
+    flat leaf, with ``q_new = qhat + delta`` and ``err = grad - q_new``."""
     g = grad.reshape(-1).float()
     qh = qhat.reshape(-1).float()
     q = quantize_codes(g - qh, R, bits)
     delta = dequantize_leaf(q, R, bits)
     q_new = qh + delta
     err = g - q_new
-    packed = pack_codes(pad_codes(q, bits), bits)
-    return packed, delta, q_new, (err * err).sum(), (delta * delta).sum()
+    return q, delta, q_new, (err * err).sum(), (delta * delta).sum()
+
+
+def quantize_pack_fused_ref(grad: torch.Tensor, qhat: torch.Tensor,
+                            R: torch.Tensor, bits: int):
+    """Pass-2 oracle on one flat leaf: ``(packed, delta, q_new, err_sq,
+    innovation_sq)``.  ``packed`` holds ``ceil(n b / 8)`` bytes, the tail
+    byte's unused lanes carrying the midpoint code."""
+    q, *rest = _pass2(grad, qhat, R, bits)
+    return (pack_codes(pad_codes(q, bits), bits), *rest)
+
+
+def quantize_pack_adaptive_ref(grad: torch.Tensor, qhat: torch.Tensor,
+                               R: torch.Tensor, grid: tuple, sel: int):
+    """Oracle of the adaptive pass 2: :func:`quantize_pack_fused_ref` at
+    ``b = grid[sel]``, with the codes in ``max(grid)``-bit lanes
+    (``ceil(n max(grid) / 8)`` bytes, the tail byte's unused lanes carrying
+    the b-bit midpoint code).  A pinned selection is the fixed-width pass
+    at that width."""
+    bits, lanes = grid[sel], max(grid)
+    q, *rest = _pass2(grad, qhat, R, bits)
+    return (pack_codes(pad_codes(q, lanes, mid=2 ** (bits - 1)), lanes),
+            *rest)
+
+
+def sparse_quantize_pack_ref(vals: torch.Tensor, lo: torch.Tensor,
+                             hi: torch.Tensor, bits: int):
+    """Oracle of the sparse quantize + pack on the k gathered survivors:
+    ``(packed uint8 [ceil(k b / 8)], codes uint8 [k], deq f32 [k])`` on the
+    sign-magnitude grid of
+    :func:`repro_torch.core.compressors.reference_sparse_quantize`; the
+    tail byte's unused lanes carry the midpoint code ``2^b / 2``, as the
+    canonical sparse payload does."""
+    codes, deq = reference_sparse_quantize(vals.reshape(-1), lo, hi, bits)
+    return pack_codes(pad_codes(codes, bits), bits), codes, deq

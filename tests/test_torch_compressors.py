@@ -1,0 +1,149 @@
+"""The port's sparse wire (``repro_torch.core.compressors`` and
+``wire.sparse_roundtrip``) against the reference's, run under ``jax.jit``.
+
+The top-k support is identical to ``jax.lax.top_k``'s, ties to the lowest
+index, indices ascending.  Codes, deq, lo/hi (b > 1), q_new, delta and the
+payload are bitwise; the two moments agree to rtol 1e-5 (float32 reduction
+order).  At b = 1 the grid endpoints are a mean, which torch reduces in
+another order than XLA, so b = 1 is held at the kernel level with the
+reference's lo/hi passed in (``tests/test_torch_kernels.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compressors as jcomp
+from repro.core import wire as jwire
+from repro_torch.core import compressors as tcomp
+from repro_torch.core import wire as twire
+from repro_torch.tree import tree_leaves
+
+SHAPES = {"w": (65, 33), "b": (4096 + 7,), "empty": (0, 4), "s": ()}
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("frac,p", [(0.05, 1_644_267_520), (0.05, 822_118_400),
+                                    (0.25, 10), (0.0, 7), (1.0, 7),
+                                    (0.5, 5), (0.5, 7), (0.125, 4)])
+def test_static_k_matches_reference(frac, p):
+    assert tcomp.static_k(frac, p) == jcomp.static_k(frac, p)
+    assert tcomp.static_k(0.05, 1_644_267_520) == 82_213_376
+
+
+def _planted_ties(seed):
+    """Magnitudes with many ties at the k-th largest value, both signs."""
+    rng = np.random.default_rng(seed)
+    mags = rng.choice(np.array([0.5, 1.0, 1.5, 3.0], np.float32), 5003)
+    mags[rng.choice(5003, 40, replace=False)] = 0.0
+    sign = np.where(rng.random(5003) < 0.5, -1.0, 1.0).astype(np.float32)
+    return mags * sign
+
+
+@pytest.mark.parametrize("k", [1, 700, 1251, 2500, 4999, 5003, 0])
+def test_topk_support_breaks_ties_like_jax(k):
+    flat = _planted_ties(k)
+    got = tcomp.select_support("topk", torch.from_numpy(flat), k)
+    want = jax.jit(lambda x: jcomp.select_support("topk", x, k))(flat)
+    _eq(got.idx.numpy(), want.idx)
+    _eq(got.vals.numpy(), want.vals)
+    if 0 < k < flat.size:                 # ties at the k-th value were cut
+        kth = np.sort(np.abs(flat))[::-1][k - 1]
+        assert (np.abs(flat) == kth).sum() > (np.abs(got.vals.numpy())
+                                              == kth).sum()
+
+
+@pytest.mark.parametrize("bits", (1, 2, 4, 8))
+def test_sparse_grid_matches_reference(bits):
+    v = (np.random.default_rng(bits).standard_normal(3001) * 1e-2).astype(
+        np.float32)
+    lo, hi = tcomp.sparse_grid(torch.from_numpy(v), bits)
+    wlo, whi = jax.jit(lambda x: jcomp.sparse_grid(x, bits))(v)
+    if bits == 1:        # a mean: float32 reduction order
+        np.testing.assert_allclose(lo.numpy(), wlo, rtol=1e-6)
+        assert lo.numpy() == hi.numpy()
+    else:
+        _eq(lo.numpy(), wlo)
+        _eq(hi.numpy(), whi)
+    z = tcomp.sparse_grid(torch.zeros(0), bits)
+    assert float(z[0]) == float(z[1]) == 0.0
+
+
+@pytest.mark.parametrize("bits", (2, 4, 8))
+def test_sparse_dequantize_inverts_the_code_map(bits):
+    v = (np.random.default_rng(bits).standard_normal(2001)).astype(np.float32)
+    lo, hi = jax.jit(lambda x: jcomp.sparse_grid(x, bits))(v)
+    tlo, thi = torch.tensor(np.asarray(lo)), torch.tensor(np.asarray(hi))
+    codes, deq = tcomp.reference_sparse_quantize(torch.from_numpy(v), tlo,
+                                                 thi, bits)
+    got = tcomp.sparse_dequantize(codes, tlo, thi, bits)
+    _eq(got.numpy(), deq.numpy())
+    want = jax.jit(lambda c, a, b: jcomp.sparse_dequantize(c, a, b, bits))(
+        codes.numpy(), lo, hi)
+    _eq(got.numpy(), want)
+
+
+def _trees(seed):
+    rng = np.random.default_rng(seed)
+    g = {k: (rng.standard_normal(s) * (i + 1)).astype(np.float32)
+         for i, (k, s) in enumerate(SHAPES.items())}
+    q = {k: rng.standard_normal(s).astype(np.float32) for k, s in SHAPES.items()}
+    to_t = lambda t: {k: torch.from_numpy(np.array(v)) for k, v in t.items()}
+    return g, q, to_t(g), to_t(q)
+
+
+@pytest.mark.parametrize("bits", (2, 4, 8))
+@pytest.mark.parametrize("frac", (0.05, 0.5))
+@pytest.mark.parametrize("backend", ("reference", "fused"))
+def test_sparse_roundtrip_matches_reference(backend, frac, bits):
+    g, q, tg, tq = _trees(bits)
+    p = sum(int(np.prod(s)) for s in SHAPES.values())
+    k = jcomp.static_k(frac, p)
+    jb = jwire.get_backend(backend)
+    want = jax.jit(lambda a, b: jwire.sparse_roundtrip(
+        jb, a, b, bits, k, "topk", with_payload=True))(g, q)
+    got = twire.sparse_roundtrip(backend, tg, tq, bits, k, "topk",
+                                 with_payload=True)
+    for field in ("q_new", "delta"):
+        w_leaves = jax.tree.leaves(getattr(want, field))
+        g_leaves = tree_leaves(getattr(got, field))
+        assert len(w_leaves) == len(g_leaves) == len(SHAPES)
+        for w, t in zip(w_leaves, g_leaves):
+            assert tuple(t.shape) == w.shape
+            _eq(t.numpy(), w)
+    for field in ("lo", "R", "idx", "codes", "payload"):
+        _eq(getattr(got, field).numpy(), getattr(want, field))
+    for field in ("err_sq", "innovation_sq"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   getattr(want, field), rtol=1e-5)
+    # the inputs are left as they were (the roundtrip works on flat copies)
+    for k_, v in g.items():
+        _eq(tg[k_].numpy(), v)
+
+
+def test_randk_names_rng_parity():
+    with pytest.raises(NotImplementedError, match="RNG parity"):
+        tcomp.select_support("randk", torch.ones(10), 3)
+    from repro_torch.core.strategy import StrategyConfig, check_supported
+    with pytest.raises(NotImplementedError, match="RNG parity"):
+        check_supported(StrategyConfig(compressor="randk",
+                                       error_feedback=True))
+    with pytest.raises(ValueError, match="unknown sparsifier"):
+        tcomp.select_support("bottomk", torch.ones(10), 3)
+
+
+def test_error_state_is_gated_per_worker():
+    template = {"a": torch.ones(3, 2), "b": torch.ones(4)}
+    assert tcomp.init_error_state(False, template, 3).residual is None
+    res = tcomp.init_error_state(True, template, 3).residual
+    assert len(res) == 3 and res[0] is not res[1]
+    assert all(float(l.abs().sum()) == 0.0 for r in res for l in tree_leaves(r))
+    assert tcomp.empty_error_state() == tcomp.ErrorState(None)
+    flat, meta = tcomp._flat(template)
+    back = tcomp._unflat(flat, meta)
+    assert back["a"].data_ptr() == flat.data_ptr()      # views, no copy
+    assert flat.data_ptr() != template["a"].data_ptr()

@@ -70,3 +70,61 @@ def test_port_reproduces_engine_golden(kind, backend):
                        ("params0", res.params["x"])):
         np.testing.assert_allclose(got.numpy(), goldens[f"{tag}/{field}"],
                                    rtol=RTOL, atol=ATOL, err_msg=field)
+
+
+def _jax_quadratic_loss(params, data):
+    import jax.numpy as jnp
+    c, a = data
+    return 0.5 * jnp.sum(a * jnp.square(params["x"] - c)) / M
+
+
+# The A-LAQ and EF-LAQ branches on the same quadratic, against the JAX
+# engine run live: an EF damping of 0.3 (its injection g + 0.3 e is one FMA
+# under jit), EF with the dense wire and with top-k, and the budget
+# controller of A-LAQ.
+FRONTIER_CASES = {
+    "ef_dense": dict(kind="laq", bits=4, error_feedback=True, ef_damping=0.3),
+    "ef_topk": dict(kind="laq", bits=2, compressor="topk", compressor_k=0.25,
+                    error_feedback=True, ef_damping=0.3),
+    "topk_no_ef": dict(kind="qgd", bits=4, compressor="topk",
+                       compressor_k=0.5),
+    "alaq_budget": dict(kind="laq", bits=8, bit_schedule=dict(
+        kind="budget", grid=(2, 4, 8), thresholds=(0.05, 0.3),
+        total_bits=5000.0, horizon=40)),
+}
+
+
+@pytest.mark.parametrize("backend", ("reference", "fused"))
+@pytest.mark.parametrize("case", FRONTIER_CASES)
+def test_adaptive_and_ef_branches_match_reference_engine(case, backend):
+    from repro.core.adaptive import BitSchedule as JBitSchedule
+    from repro.core.criterion import CriterionConfig as JCriterion
+    from repro.core.simulated import run_gradient_based as jrun
+    from repro.core.strategy import StrategyConfig as JStrategy
+    from repro_torch.core.adaptive import BitSchedule
+
+    kw = dict(FRONTIER_CASES[case], wire_backend=backend)
+    sched = kw.pop("bit_schedule", None)
+    crit = dict(D=10, xi=0.08, t_bar=100)
+    centers, scales = quadratic_data()
+    jcfg = JStrategy(**kw, criterion=JCriterion(**crit),
+                     bit_schedule=sched and JBitSchedule(**sched))
+    want = jrun(_jax_quadratic_loss, {"x": np.zeros(P, np.float32)},
+                (centers.numpy(), scales.numpy()), jcfg, steps=40, alpha=0.3)
+    tcfg = StrategyConfig(**kw, criterion=CriterionConfig(**crit),
+                          bit_schedule=sched and BitSchedule(**sched))
+    got = run_gradient_based(quadratic_loss,
+                             {"x": torch.zeros(P, dtype=torch.float32)},
+                             (centers, scales), tcfg, steps=40, alpha=0.3,
+                             device="cpu")
+    for field in ("cum_uploads", "cum_bits", "mean_bits"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    assert int(got.cum_uploads[-1]) < 40 * M or kw["kind"] == "qgd"
+    if sched:                   # widths below 8, and mixed within rounds
+        assert len(set(got.mean_bits.tolist()) - {0.0, 2.0, 4.0, 8.0}) > 0
+    for field in ("loss", "grad_norm_sq", "quant_err"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(want, field)),
+                                   rtol=RTOL, atol=ATOL, err_msg=field)

@@ -8,7 +8,10 @@ frameworks reduce the softmax and the matmuls in another order.  The
 deterministic LAQ engine (b=8, per-leaf radii, fused wire, lm_frontier's
 criterion and 1/t stepsize) runs 12 rounds on each side, the last of which
 skips; upload and bit counts must be identical and the loss trajectory
-agree to rtol 1e-4.
+agree to rtol 1e-4.  lm_frontier's two other deterministic methods, A-LAQ
+(radius schedule, grid (2, 4, 8), relative thresholds) and EF-top-k (b=4,
+5% of the coordinates, error feedback), run 5 rounds each, held the same
+way, with the per-round mean width exact too.
 
 The gradients of the two frameworks differ at the ulp, which moves the
 few codes that sit on a rounding boundary by one grid step, and the next
@@ -31,6 +34,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.core import (CriterionConfig as JCriterion, EtaSchedule as JEta,
                         RoundEngine as JEngine, StrategyConfig as JStrategy)
+from repro.core.adaptive import BitSchedule as JBitSchedule
 from repro.core.engine import AccumulatingSource as JSource
 from repro.data import lm_worker_corpus as jax_corpus
 from repro.models import init_params as jax_init_params
@@ -38,7 +42,8 @@ from repro.models import lm_worker_loss as jax_worker_loss
 from repro.models.model import lm_loss as jax_lm_loss
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core.adaptive import EtaSchedule
+from repro_torch.core import strategy as tstrategy
+from repro_torch.core.adaptive import BitSchedule, EtaSchedule, select_bits
 from repro_torch.core.criterion import CriterionConfig
 from repro_torch.core.engine import AccumulatingSource, RoundEngine
 from repro_torch.core.strategy import StrategyConfig
@@ -162,3 +167,109 @@ def test_round_memory_is_w_plus_4_model_copies_between_workers(setup):
         carry, _ = engine.round(carry)
     assert len(copies) == 2 * W
     assert max(copies) < W + 4 + 0.01, copies
+
+
+LM_CRIT, LM_ETA = dict(D=10, xi=0.08, t_bar=100), dict(kind="inv_t", t0=30.0)
+FRONTIER = {     # benchmarks/lm_frontier.py:84-96, on the fused wire
+    "alaq": dict(kind="laq", bits=8, per_leaf_radius=True,
+                 wire_backend="fused"),
+    "ef_topk": dict(kind="laq", bits=4, per_leaf_radius=True,
+                    wire_backend="fused", compressor="topk",
+                    compressor_k=0.05, error_feedback=True),
+}
+# lm_frontier's schedule keeps b=8 for these 5 rounds at alpha=0.05 (R
+# never falls to half its anchor); the tighter thresholds make the engine
+# select b=4, so that a narrow arm inside the engine is held too.  A narrow
+# width goes with a small radius, whose worker then skips: the mean width
+# of the uploads stays 8.
+SCHEDULES = {"alaq": (0.05, 0.5), "alaq_tight": (0.5, 0.9)}
+FRONTIER["alaq_tight"] = FRONTIER["alaq"]
+
+
+@pytest.mark.parametrize("method", FRONTIER)
+def test_frontier_lm_rounds_match_reference_engine(setup, method,
+                                                   monkeypatch):
+    cfg_j, cfg_t, params_j, corpus_j, params_t, corpus_t = setup
+    kw, rounds = FRONTIER[method], 5
+    sched = dict(kind="radius", grid=(2, 4, 8), threshold_mode="rel",
+                 thresholds=SCHEDULES.get(method, ()))
+    jsched = JBitSchedule(**sched) if method in SCHEDULES else None
+    tsched = BitSchedule(**sched) if method in SCHEDULES else None
+    jcfg = JStrategy(**kw, bit_schedule=jsched, criterion=JCriterion(**LM_CRIT),
+                     eta_schedule=JEta(**LM_ETA))
+    want = JEngine(JSource(jax_worker_loss(cfg_j, W), corpus_j,
+                           deterministic=True, accum=ACCUM, scale=1.0),
+                   jcfg, alpha=ALPHA).run(params_j, rounds)
+    tcfg = StrategyConfig(**kw, bit_schedule=tsched,
+                          criterion=CriterionConfig(**LM_CRIT),
+                          eta_schedule=EtaSchedule(**LM_ETA))
+    selected = []
+
+    def spy(*args, **kw):
+        out = select_bits(*args, **kw)
+        selected.append(float(out[0]))
+        return out
+
+    monkeypatch.setattr(tstrategy, "select_bits", spy)
+    got = RoundEngine(AccumulatingSource(lm_worker_loss(cfg_t, W), corpus_t,
+                                         deterministic=True, accum=ACCUM,
+                                         scale=1.0),
+                      tcfg, alpha=ALPHA).run(params_t, rounds, device="cpu")
+
+    np.testing.assert_array_equal(got.cum_uploads.numpy(),
+                                  np.asarray(want.cum_uploads))
+    np.testing.assert_array_equal(got.cum_bits.numpy(),
+                                  np.asarray(want.cum_bits))
+    np.testing.assert_array_equal(got.mean_bits.numpy(),
+                                  np.asarray(want.mean_bits))
+    assert int(got.cum_uploads[0]) == W
+    if method in SCHEDULES:     # the rel bootstrap picks the widest
+        assert float(got.mean_bits[0]) == 8.0
+    if method in SCHEDULES:     # every worker selects every round
+        assert len(selected) == rounds * W
+    if method == "alaq_tight":
+        assert min(selected) < 8.0, selected
+    np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
+                               rtol=1e-4)
+
+
+def test_fused_alaq_round_holds_no_more_model_copies_than_laq(setup,
+                                                              monkeypatch):
+    """The fused A-LAQ worker takes its radii without materializing the
+    diff ``g - qhat``: during each pass-2 launch it holds no more float32
+    memory than the fixed-width LAQ worker does during its own."""
+    from repro_torch.core import wire
+    _, cfg_t, _, _, _, corpus_t = setup
+    model_bytes = 4 * n_params(cfg_t)
+    peaks = {}
+
+    def run(name, tcfg, op):
+        seen, calls = [], []
+        real = getattr(wire.ops, op)
+
+        def probe(*args):       # at each worker's first leaf
+            if len(calls) % 12 == 0:
+                seen.append(_live_f32_bytes())
+            calls.append(1)
+            return real(*args)
+
+        monkeypatch.setattr(wire.ops, op, probe)
+        source = AccumulatingSource(lm_worker_loss(cfg_t, W), corpus_t,
+                                    deterministic=True, accum=ACCUM,
+                                    scale=1.0)
+        engine = RoundEngine(source, tcfg, alpha=ALPHA)
+        carry = engine.init_carry(init_params(0, cfg_t, device="cpu"),
+                                  device="cpu")
+        carry, _ = engine.round(carry)
+        monkeypatch.setattr(wire.ops, op, real)
+        assert len(calls) == W * 12
+        peaks[name] = max(seen) / model_bytes
+        del carry, engine
+
+    kw = dict(kind="laq", bits=8, per_leaf_radius=True, wire_backend="fused",
+              criterion=CriterionConfig(**LM_CRIT))
+    run("laq", StrategyConfig(**kw), "quantize_pack_fused")
+    run("alaq", StrategyConfig(**kw, bit_schedule=BitSchedule(
+        kind="radius", grid=(2, 4, 8), threshold_mode="rel",
+        thresholds=(0.05, 0.5))), "quantize_pack_adaptive")
+    assert peaks["alaq"] < peaks["laq"] + 0.05, peaks

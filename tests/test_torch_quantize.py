@@ -116,3 +116,43 @@ def test_norms_sizes_and_costs():
                                                                     n_radii=3)
     assert tq.dense_bits(1000) == jq.dense_bits(1000)
     assert float(tq.tree_sq_norm({})) == 0.0
+
+
+def test_fma_f32_rounds_once_like_the_contracted_jit():
+    """``fma_f32`` against XLA's contracted ``a * b + c`` under jit, with
+    addends spread over 70 binades so that many sums need more than 53
+    bits; and against exact rational arithmetic on a sample."""
+    from fractions import Fraction
+
+    from repro_torch.core.quantize import fma_f32
+    rng = np.random.default_rng(0)
+    n = 100_003
+    a = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    c = (rng.standard_normal(n) * np.exp(rng.uniform(-60, 10, n))).astype(
+        np.float32)
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    want = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
+    np.testing.assert_array_equal(got, want)
+    for i in range(300):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(
+            float(c[i]))
+        err = abs(Fraction(float(got[i])) - exact)
+        for nb in (np.nextafter(got[i], np.float32(np.inf)),
+                   np.nextafter(got[i], np.float32(-np.inf))):
+            assert err <= abs(Fraction(float(nb)) - exact)
+    # a Python scalar is rounded to float32 first, as a weak type is
+    s = fma_f32(0.3, torch.from_numpy(a), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(
+        s, np.asarray(jax.jit(lambda x, z: 0.3 * x + z)(a, c)))
+
+
+@pytest.mark.parametrize("p", (1, 2, 3, 1024, 1025, 822_118_400,
+                               1_644_267_520))
+def test_sparse_upload_bits_match_reference(p):
+    assert tq.index_bits(p) == jq.index_bits(p)
+    k = max(1, p // 20)
+    for bits in BITS:
+        assert (tq.sparse_upload_bits(p, k, bits, n_radii=2)
+                == jq.sparse_upload_bits(p, k, bits, n_radii=2))
