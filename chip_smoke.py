@@ -54,6 +54,30 @@ CPU or to a plain version while a CUDA tensor is at hand):
 
    Every loss must be finite, round 1 must upload from every worker, and
    each path's peak allocation must stay below 76 GB.
+5. The sharded step (``launch/train.py`` ``make_train_step``) at full
+   width: stablelm-1.6b at its published widths and depth, bfloat16
+   params and compute, one worker on NCCL (world size 1), 2 x 512 tokens
+   in 2 microbatches, sgd, the packed wire: 3 steps at b=4 and 3 with the
+   adaptive schedule on the grid (2, 4, 8).  Per step over the 12 leaves:
+   absmax 24 (12 in worker_update, 12 in the streamed wire), and
+   quantize_pack_fused 12 + quantize_codes_fused 12 (fixed width) or
+   quantize_pack_adaptive 12 + quantize_codes_adaptive 12 (adaptive).
+   Losses finite, peak allocation below 76 GB.
+6. The exchange on the card: W=4 gloo ranks on the one card (payloads
+   staged through pinned host memory), stablelm-1.6b at full width and 2
+   layers, 3 steps each of the float wire and the packed wire at b=4 from
+   the same parameters and batch: the parameters must be bitwise equal
+   between the two wires, and the uploads and bits equal step by step.
+7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
+   {4, 8}, its rows printed.
+
+Phase 2 also holds kernels 5 and 6 (``quantize_codes_fused``,
+``quantize_codes_adaptive``) and kernel 3 (``quantize_pack``) at the 12
+leaf shapes for b in {1, 2, 4, 8} (each grid width for kernel 6) and at a
+ragged length, an odd last dim, R == 0 and a NaN input; kernel 8
+(``dequant_acc``) at the 12 leaf shapes with W=4, keep (1, 0, 1, 1) and
+one zero radius, with and without acc, and at W in {1, 2}, an unpadded
+payload and a NaN radius.  All bitwise.
 
 The last lines are the card (``nvidia-smi``), one JSON object of per-kernel
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -64,6 +88,7 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing as mp
 import os
 import subprocess
 import sys
@@ -78,6 +103,9 @@ PEAK_LIMIT = 76e9
 SPARSE_K = 82_213_376         # static_k(0.05, 1,644,267,520), 24 layers
 SMALL_ROUNDS, SMALL_ALPHA = 12, 0.05
 TIMED_LAUNCHES = 20
+SHARDED_STEPS, SHARDED_ROWS, SHARDED_MICROBATCH, SHARDED_LR = 3, 2, 2, 1e-2
+EXCHANGE_W, EXCHANGE_LAYERS, EXCHANGE_ROWS = 4, 2, 1
+RANK_TIMEOUT = 600            # seconds for the phase-6 ranks
 
 
 def log(msg):
@@ -399,8 +427,388 @@ def small_slice_check(torch, ops):
             f"{rel:.3e}; quantize_pack_adaptive launches by width {by_width}")
 
 
+
+def check_codes_kernels(leaf_shapes, torch, ops, ref):
+    """Phase 2, kernels 5, 6 and 3: bitwise against their plain versions at
+    every main-path shape and the edge cases; kernel 6 pinned at a width is
+    kernel 5.  Returns the largest absolute error of each (0 when
+    bitwise)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    grid = (2, 4, 8)
+    err = {"quantize_codes_fused": 0.0, "quantize_codes_adaptive": 0.0,
+           "quantize_pack": 0.0}
+
+    def one(label, g, qh, bits_list):
+        R = ops.absmax(g, qh)
+        for bits in bits_list:
+            got = ops.quantize_codes_fused(g, qh, R, bits)
+            _bitwise(torch, f"{label} b={bits} codes", ("codes", "delta"),
+                     got, ref.quantize_codes_ref(g, qh, R, bits))
+            pk = ops.quantize_pack(g, qh, R, bits)
+            _bitwise(torch, f"{label} b={bits} payload", ("packed", "delta"),
+                     pk, ref.quantize_pack_payload_ref(g, qh, R, bits))
+            if not torch.equal(pk[1], got[1]):
+                raise AssertionError(f"{label}: kernels 3 and 5 disagree")
+            if bits in grid:
+                sel = grid.index(bits)
+                ad = ops.quantize_codes_adaptive(g, qh, R, torch.eye(3)[sel],
+                                                 grid)
+                _bitwise(torch, f"{label} b={bits} adaptive",
+                         ("codes", "delta"), ad,
+                         ref.quantize_codes_adaptive_ref(g, qh, R, grid, sel))
+                _bitwise(torch, f"{label} b={bits} adaptive vs kernel 5",
+                         ("codes", "delta"), ad, got)
+        torch.cuda.synchronize()
+        log(f"  ok {label}: n={g.numel()} b={bits_list} kernels 5, 6, 3 "
+            "bitwise")
+
+    for name, shape in leaf_shapes:
+        g, qh = _pair(torch, gen, math.prod(shape))
+        one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape),
+            (1, 2, 4, 8))
+        del g, qh
+    g, qh = _pair(torch, gen, 3 * 4096 + 1239)
+    one("ragged length", g, qh, (1, 2, 4, 8))
+    g, qh = _pair(torch, gen, 4097 * 3)
+    one("odd last dim (4097, 3)", g.view(4097, 3), qh.view(4097, 3), (2, 4, 8))
+    g, qh = _pair(torch, gen, 1_000_003, shift=1)
+    one("unaligned operands", g, qh, (2, 4, 8))
+    g, qh = _pair(torch, gen, 1_000_003)
+    one("R == 0", g, g.clone(), (1, 2, 4, 8))
+    g[1234] = float("nan")
+    one("NaN input", g, qh, (2, 4, 8))
+    return err
+
+
+def check_dequant_kernel(leaf_shapes, torch, ops, ref):
+    """Phase 2, kernel 8: bitwise against its plain version (acc first, then
+    worker by worker) at every leaf shape with W=4, keep (1, 0, 1, 1) and
+    one zero radius, with and without acc, each b; at W in {1, 2}, an
+    unpadded payload and a NaN radius.  Returns the largest absolute
+    error."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+
+    def one(label, n, W, bits, nbytes=None, nan_radius=False):
+        nbytes = nbytes or -(-n // 4096) * 4096 * bits // 8
+        packed = torch.randint(0, 256, (W, nbytes), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        R = torch.rand(W, generator=gen, device="cuda") * 1e-2
+        R[min(1, W - 1)] = float("nan") if nan_radius else 0.0
+        keep = torch.tensor((1.0, 0.0, 1.0, 1.0)[:W], device="cuda")
+        acc = torch.randn(n, generator=gen, device="cuda")
+        for a in (None, acc):
+            got = ops.dequant_acc(packed, R, keep, bits, n, a)
+            want = ref.dequant_acc_ref(packed, R, keep, bits, n, a)
+            _bitwise(torch, f"{label} W={W} b={bits} acc={a is not None}",
+                     ("out",), (got,), (want,))
+        torch.cuda.synchronize()
+
+    for name, shape in leaf_shapes:
+        n = math.prod(shape)
+        for bits in (1, 2, 4, 8):
+            one(f"{name} {tuple(shape)}", n, 4, bits)
+        log(f"  ok {name} {tuple(shape)}: kernel 8 W=4 b=1,2,4,8 with and "
+            "without acc bitwise")
+    for W in (1, 2, 4):
+        for bits in (1, 2, 4, 8):
+            n = 3 * 4096 + 1239
+            one("ragged", n, W, bits)
+            one("unpadded payload", n, W, bits, nbytes=-(-n * bits // 8))
+            one("NaN radius", n, W, bits, nan_radius=True)
+    log("  ok kernel 8 at W=1, 2, 4: ragged, unpadded payload, NaN radius")
+    return 0.0
+
+
+def time_new_kernels(n, torch, ops, ref):
+    """Kernels 5, 6, 3 and 8 and their plain versions at the largest leaf:
+    kernels 5 and 6 at each width of the grid (2, 4, 8), kernel 3 at b in
+    {4, 8}, kernel 8 at W=4, b=4 with and without acc."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    qh = g + torch.randn(n, generator=gen, device="cuda") * 1e-4
+    R = ops.absmax(g, qh)
+    grid = (2, 4, 8)
+    codes, adaptive = {}, {}
+    for sel, b in enumerate(grid):
+        onehot = torch.eye(3)[sel]
+        codes[b] = dict(
+            ms=time_ms(lambda: ops.quantize_codes_fused(g, qh, R, b)),
+            plain_ms=time_ms(lambda: ref.quantize_codes_ref(g, qh, R, b)))
+        adaptive[b] = dict(
+            ms=time_ms(lambda: ops.quantize_codes_adaptive(g, qh, R, onehot,
+                                                           grid)),
+            plain_ms=time_ms(lambda: ref.quantize_codes_adaptive_ref(
+                g, qh, R, grid, sel)))
+    payload = {b: dict(
+        ms=time_ms(lambda: ops.quantize_pack(g, qh, R, b)),
+        plain_ms=time_ms(lambda: ref.quantize_pack_payload_ref(g, qh, R, b)),
+        bytes=8 * n + 4 * n + n * b // 8 + 4) for b in (4, 8)}
+    rows = {
+        "quantize_codes_fused": dict(
+            **codes[4], library_ms=None, bytes=8 * n + n + 4 * n + 4,
+            ops=10 * n, by_width={str(b): r for b, r in codes.items()}),
+        "quantize_codes_adaptive": dict(
+            **adaptive[4], library_ms=None, bytes=8 * n + n + 4 * n + 4,
+            ops=10 * n, by_width={str(b): r for b, r in adaptive.items()}),
+        "quantize_pack": dict(
+            ms=payload[4]["ms"], plain_ms=payload[4]["plain_ms"],
+            library_ms=None, bytes=payload[4]["bytes"], ops=10 * n,
+            by_width={str(b): dict(ms=r["ms"], plain_ms=r["plain_ms"])
+                      for b, r in payload.items()}),
+    }
+    del g, qh
+    W, b = 4, 4
+    packed = torch.randint(0, 256, (W, n * b // 8), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    Rw = torch.rand(W, generator=gen, device="cuda") * 1e-2
+    keep = torch.tensor((1.0, 0.0, 1.0, 1.0), device="cuda")
+    acc = torch.randn(n, generator=gen, device="cuda")
+    with_acc = dict(
+        ms=time_ms(lambda: ops.dequant_acc(packed, Rw, keep, b, n, acc)),
+        plain_ms=time_ms(lambda: ref.dequant_acc_ref(packed, Rw, keep, b, n,
+                                                     acc)))
+    wb = with_acc["bytes"] = W * n * b // 8 + 4 * n + 4 * n + 8 * W
+    with_acc["bound_ms"] = wb / HBM_BYTES_PER_S * 1e3
+    rows["dequant_acc"] = dict(
+        ms=time_ms(lambda: ops.dequant_acc(packed, Rw, keep, b, n)),
+        plain_ms=time_ms(lambda: ref.dequant_acc_ref(packed, Rw, keep, b, n)),
+        library_ms=None, bytes=W * n * b // 8 + 4 * n + 8 * W,
+        ops=4 * W * n, with_acc=with_acc)
+    del packed, acc
+    return {name: _bound(r) for name, r in rows.items()}
+
+
+def sharded_strategies():
+    """The sharded step's two packed-wire configurations (phase 5)."""
+    from repro_torch.core.adaptive import BitSchedule
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.strategy import StrategyConfig
+    base = dict(kind="laq", bits=4, per_leaf_radius=True,
+                wire_backend="fused",
+                criterion=CriterionConfig(D=10, xi=0.08, t_bar=100))
+    return {
+        "sharded_b4": StrategyConfig(**base),
+        "sharded_adaptive": StrategyConfig(**base, bit_schedule=BitSchedule(
+            kind="radius", grid=(2, 4, 8), threshold_mode="rel",
+            thresholds=(0.05, 0.5))),
+    }
+
+
+SHARDED_KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
+                   "quantize_codes_fused", "quantize_codes_adaptive")
+
+
+def run_sharded_path(torch, ops, workers, method, cfg, steps):
+    """Phase 5: one packed-wire configuration of the sharded step at full
+    width on one worker, fresh params, the launch counters zeroed just
+    before the steps and read just after."""
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+
+    corpus = lm_worker_corpus(0, 1, SHARDED_ROWS, SEQ, cfg.vocab,
+                              device="cuda")
+    batch = {k: v[0] for k, v in corpus.items()}
+    strat = sharded_strategies()[method]
+    state = init_train_state(init_params(0, cfg, device="cuda"), workers,
+                             strat, sgd())
+    step = make_train_step(cfg, workers, strat, sgd(), lr=SHARDED_LR,
+                           wire="packed", microbatch=SHARDED_MICROBATCH)
+    torch.cuda.synchronize()
+    for name in SHARDED_KERNELS:
+        getattr(ops, name).launches = 0
+    ops.quantize_codes_adaptive.launches_by_width = {}
+    recs, step_ms, peaks = [], [], []
+    for k in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        recs.append(met)
+        log(f"  step {k + 1}: loss {met.loss.item():.6f} uploads "
+            f"{met.uploads} bits {met.bits.item():.6e} ms {step_ms[-1]:.1f} "
+            f"peak_alloc {peaks[-1] / 1e9:.2f} GB")
+    launches = {name: getattr(ops, name).launches for name in SHARDED_KERNELS}
+    launches["codes_adaptive_by_width"] = dict(
+        ops.quantize_codes_adaptive.launches_by_width)
+    del state, step, corpus, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if not all(math.isfinite(m.loss.item()) for m in recs):
+        raise AssertionError(f"{method}: non-finite loss")
+    if recs[0].uploads != 1:
+        raise AssertionError(f"{method}: step 1 uploaded {recs[0].uploads}")
+    if max(peaks) >= PEAK_LIMIT:
+        raise AssertionError(f"{method}: peak allocation {max(peaks)} B >= "
+                             f"{PEAK_LIMIT:.0f} B")
+    return launches, recs, step_ms, peaks
+
+
+def _exchange_rank(rank, port, queue):
+    """Phase 6, one of the EXCHANGE_W gloo ranks on the card: 3 steps of
+    the float wire, then 3 of the packed wire at b=4, from the same
+    parameters and batch; puts (rank, result or error) on ``queue``."""
+    try:
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "src"))
+        import torch
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.data.synthetic import lm_worker_corpus
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import init_workers, worker_batch
+        from repro_torch.launch.train import init_train_state, make_train_step
+        from repro_torch.models.model import init_params
+        from repro_torch.optim.optimizers import sgd
+        from repro_torch.tree import tree_leaves
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        store = dist.TCPStore("127.0.0.1", port, EXCHANGE_W, False)
+        workers = init_workers("gloo", EXCHANGE_W, rank, store)
+        cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                                  n_layers=EXCHANGE_LAYERS)
+        corpus = lm_worker_corpus(1, EXCHANGE_W, EXCHANGE_ROWS, SEQ,
+                                  cfg.vocab, device="cuda")
+        batch = worker_batch({k: v.reshape((-1,) + tuple(v.shape[2:]))
+                              for k, v in corpus.items()}, workers)
+        strat = sharded_strategies()["sharded_b4"]
+        out = {"transport": workers.transport("cuda")}
+        final = {}
+        for wire in ("float", "packed"):
+            for name in SHARDED_KERNELS:
+                getattr(ops, name).launches = 0
+            state = init_train_state(init_params(0, cfg, device="cuda"),
+                                     workers, strat, sgd())
+            step = make_train_step(cfg, workers, strat, sgd(),
+                                   lr=SHARDED_LR, wire=wire)
+            torch.cuda.synchronize()
+            rec = []
+            for _ in range(SHARDED_STEPS):
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+                rec.append((met.loss.item(), met.uploads, met.bits.item(),
+                            (time.perf_counter() - t0) * 1e3))
+            out[wire] = rec
+            out[f"{wire}_launches"] = {name: getattr(ops, name).launches
+                                       for name in SHARDED_KERNELS}
+            out[f"{wire}_peak"] = torch.cuda.max_memory_allocated()
+            final[wire] = [l.cpu() for l in tree_leaves(state.params)]
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["params_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(final["float"], final["packed"]))
+        out["n_params"] = sum(t.numel() for t in final["float"])
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException as e:                   # reported, then re-raised
+        import traceback
+        queue.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
+        raise
+
+
+def exchange_on_card(torch):
+    """Phase 6: EXCHANGE_W gloo ranks on the one card; every rank's float
+    and packed parameters must be bitwise equal, and the uploads and bits
+    equal step by step.  Returns rank 0's record."""
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, EXCHANGE_W + 1, True,
+                          wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_exchange_rank, args=(r, store.port, queue))
+             for r in range(EXCHANGE_W)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT
+        while len(results) < EXCHANGE_W:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"phase 6: ranks {sorted(results)} of "
+                                     f"{EXCHANGE_W} reported in "
+                                     f"{RANK_TIMEOUT} s")
+            try:
+                rank, out = queue.get(timeout=min(left, 10))
+            except Exception:       # queue.Empty: check the ranks are alive
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in results]
+                if dead:
+                    raise AssertionError(f"phase 6: ranks {dead} died "
+                                         "without a result")
+                continue
+            if "error" in out:
+                raise AssertionError(f"phase 6 rank {rank}:\n{out['error']}")
+            results[rank] = out
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    for rank, out in sorted(results.items()):
+        if not out["params_bitwise"]:
+            raise AssertionError(f"phase 6 rank {rank}: float and packed "
+                                 "wires gave different parameters")
+        for a, b in zip(out["float"], out["packed"]):
+            if a[1:3] != b[1:3]:
+                raise AssertionError(f"phase 6 rank {rank}: uploads/bits "
+                                     f"differ between wires: {a} vs {b}")
+        log(f"  rank {rank}: transport {out['transport']}; float steps "
+            f"(loss, uploads, bits, ms) {out['float']}; packed "
+            f"{out['packed']}; peak {out['packed_peak'] / 1e9:.2f} GB; "
+            f"params bitwise equal between the wires "
+            f"({out['n_params']} params)")
+    first = results[0]
+    for rank, out in results.items():       # global sums: one value on all
+        for wire in ("float", "packed"):
+            if [r[1:3] for r in out[wire]] != [r[1:3] for r in first[wire]]:
+                raise AssertionError(f"phase 6: rank {rank}'s uploads/bits "
+                                     f"differ from rank 0's ({wire} wire)")
+    want = {"absmax": 2 * 12 * SHARDED_STEPS,
+            "quantize_pack_fused": 12 * SHARDED_STEPS,
+            "quantize_codes_fused": 12 * SHARDED_STEPS}
+    for rank, out in results.items():
+        got = out["packed_launches"]
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"phase 6 rank {rank}: packed-wire launches "
+                                 f"{got}, expected {want}")
+    return first
+
+
+def run_bits_sweep(torch, ops):
+    """Phase 7: the port's bits_sweep benchmark, its launch counters of
+    kernels 3 and 8 zeroed just before and read just after."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from benchmarks_torch import bits_sweep
+    for name in ("quantize_pack", "dequant_acc"):
+        getattr(ops, name).launches = 0
+    rows = bits_sweep.run()
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches
+                for name in ("quantize_pack", "dequant_acc")}
+    for row in rows:
+        log("  " + json.dumps(row))
+    want = 2 * (1 + bits_sweep.WARMUP + bits_sweep.TIMED)
+    if launches != {"quantize_pack": want, "dequant_acc": want}:
+        raise AssertionError(f"phase 7 launches {launches}, expected {want} "
+                             "each")
+    return launches, rows
+
+
 KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
-           "sparse_quantize_pack")
+           "sparse_quantize_pack", "quantize_pack", "quantize_codes_fused",
+           "quantize_codes_adaptive", "dequant_acc")
 
 
 def run_path(torch, ops, method, cfg, rounds):
@@ -512,14 +920,21 @@ def main() -> int:
     errs["quantize_pack_adaptive"] = check_adaptive_kernel(shapes, torch, ops,
                                                            ref)
     errs["sparse_quantize_pack"] = check_sparse_kernel(ef_k, torch, ops, ref)
+    errs.update(check_codes_kernels(shapes, torch, ops, ref))
+    errs["dequant_acc"] = check_dequant_kernel(shapes, torch, ops, ref)
     largest = max(math.prod(s) for _, s in shapes)
     timing = time_kernels(largest, ef_k, torch, ops, ref)
+    timing.update(time_new_kernels(largest, torch, ops, ref))
     for name, r in timing.items():
         log(f"  {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
         for b, w in r.get("by_width", {}).items():
             log(f"    width {b}: {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms")
+        if "with_acc" in r:
+            w = r["with_acc"]
+            log(f"    with acc: {w['ms']:.4f} ms (bound {w['bound_ms']:.4f} "
+                f"ms), plain {w['plain_ms']:.4f} ms")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -548,18 +963,73 @@ def main() -> int:
             f"{sum(round_ms[1:]) / (rounds - 1):.1f}, max peak "
             f"{max(peaks) / 1e9:.2f} GB")
 
+    log("phase 5: the sharded step at full width, one NCCL worker")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_workers
+    store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
+    workers = init_workers("nccl", 1, 0, store)
+    sharded_cfg = get_config("stablelm-1.6b")      # bf16 params and compute
+    per_step = {
+        "sharded_b4": {"absmax": 24, "quantize_pack_fused": 12,
+                       "quantize_codes_fused": 12},
+        "sharded_adaptive": {"absmax": 24, "quantize_pack_adaptive": 12,
+                             "quantize_codes_adaptive": 12},
+    }
+    for method, want in per_step.items():
+        log(f"  {method}: stablelm-1.6b at {sharded_cfg.n_layers} layers "
+            f"(P={n_params(sharded_cfg)}), {SHARDED_ROWS}x{SEQ} tokens in "
+            f"{SHARDED_MICROBATCH} microbatches, transport "
+            f"{workers.transport('cuda')}")
+        launches, recs, step_ms, peaks = run_sharded_path(
+            torch, ops, workers, method, sharded_cfg, SHARDED_STEPS)
+        for name in SHARDED_KERNELS:
+            if launches[name] != SHARDED_STEPS * want.get(name, 0):
+                raise AssertionError(
+                    f"{method}: {name} launched {launches[name]} times, "
+                    f"expected {SHARDED_STEPS * want.get(name, 0)}")
+        by_path[method] = {k: launches.get(k, 0) for k in KERNELS}
+        if method == "sharded_adaptive":
+            codes_by_width = launches["codes_adaptive_by_width"]
+        log(f"  ok {method}: launches {launches}; step ms "
+            f"{[round(x, 1) for x in step_ms]}; max peak "
+            f"{max(peaks) / 1e9:.2f} GB")
+    dist.destroy_process_group()
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: the exchange on the card, W={EXCHANGE_W} gloo ranks, "
+        f"stablelm-1.6b at full width and {EXCHANGE_LAYERS} layers")
+    ex = exchange_on_card(torch)
+    by_path["exchange_w4_packed"] = {k: ex["packed_launches"].get(k, 0)
+                                     for k in KERNELS}
+    log(f"  ok: float and packed wires give bitwise-equal parameters on "
+        f"every rank; uploads/bits per step {[r[1:3] for r in ex['packed']]}")
+
+    log("phase 7: benchmarks_torch/bits_sweep.py")
+    sweep_launches, _ = run_bits_sweep(torch, ops)
+    by_path["bits_sweep"] = {k: sweep_launches.get(k, 0) for k in KERNELS}
+
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {
         "absmax": "src/repro/kernels/quant_pack.py:82",
         "quantize_pack_fused": "src/repro/kernels/quant_pack.py:134",
+        "quantize_pack": "src/repro/kernels/quant_pack.py:186",
         "quantize_pack_adaptive": "src/repro/kernels/quant_pack.py:264",
+        "quantize_codes_fused": "src/repro/kernels/quant_pack.py:331",
+        "quantize_codes_adaptive": "src/repro/kernels/quant_pack.py:377",
         "sparse_quantize_pack": "src/repro/kernels/quant_pack.py:436",
+        "dequant_acc": "src/repro/kernels/quant_pack.py:502",
     }
+    for name in KERNELS:
+        if not any(by_path[m].get(name, 0) for m in by_path):
+            raise AssertionError(f"{name} was launched on no path")
     kernels = [{
         "name": name, "route": "cuda", "source": src,
         "replaces": replaces[name],
-        "launches": sum(by_path[m][name] for m in by_path),
-        "launches_by_path": {m: by_path[m][name] for m in by_path},
+        "launches": sum(by_path[m].get(name, 0) for m in by_path),
+        "launches_by_path": {m: by_path[m].get(name, 0) for m in by_path
+                             if by_path[m].get(name, 0)},
         "max_abs_err": errs[name], "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
@@ -569,6 +1039,8 @@ def main() -> int:
     by_width = sorted(by_path["alaq"]["adaptive_by_width"].items())
     kernels[KERNELS.index("quantize_pack_adaptive")]["launches_by_width"] = {
         str(b): n for b, n in by_width}
+    kernels[KERNELS.index("quantize_codes_adaptive")]["launches_by_width"] = {
+        str(b): n for b, n in sorted(codes_by_width.items())}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Wire backends: port of ``repro/core/wire.py`` (send side).
+"""Wire backends: port of ``repro/core/wire.py``.
 
 * ``reference`` -- the staged path of :mod:`repro_torch.core.quantize` and
   :mod:`repro_torch.core.adaptive`.
@@ -9,6 +9,20 @@
   chosen per round with :func:`~repro_torch.kernels.ops.quantize_pack_adaptive`.
   The dispatch layer picks the CUDA kernel or its plain version by the
   tensors' device, so the backend has no lowering option of its own.
+
+The per-leaf primitives of the streamed sharded wire
+(``launch/train.py`` ``_packed_aggregate``) are ``leaf_absmax``,
+``leaf_quantize`` and ``leaf_quantize_adaptive``: their base-class bodies
+are the reference expressions, and the fused backend swaps in kernels 1,
+5 and 6 (:func:`~repro_torch.kernels.ops.absmax`,
+:func:`~repro_torch.kernels.ops.quantize_codes_fused`,
+:func:`~repro_torch.kernels.ops.quantize_codes_adaptive`).  The receive
+side ``dequant_acc`` decodes ``[W, nbytes]`` packed payloads and sums them:
+the reference backend in the reference's order (the workers from 0, then
+``acc + sum``), the fused backend through
+:func:`~repro_torch.kernels.ops.dequant_acc` in the Pallas kernel's order
+(``acc`` first, then worker by worker).  Without ``acc`` the two are
+bitwise equal; with it they agree to float32 rounding.
 
 The sparse wire (EF-LAQ, :func:`sparse_roundtrip`) shares its selection,
 grid, scatter and payload code between the backends; only the quantize
@@ -28,12 +42,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import dequant_acc_ref
 from ..tree import tree_flatten, tree_leaves, tree_unflatten
-from .adaptive import staged_adaptive_pass
+from .adaptive import (dequantize_dynamic, quantize_dynamic,
+                       staged_adaptive_pass)
 from .compressors import (_flat, _unflat, reference_sparse_quantize,
                           scatter_selection, select_support, sparse_grid)
-from .quantize import (innovation, pack_codes, pad_codes, roundtrip_parts,
-                       tree_sq_norm)
+from .quantize import (dequantize_leaf, innovation, pack_codes, pad_codes,
+                       quantize_codes, roundtrip_parts, tree_sq_norm)
+
+F32 = torch.float32
 
 
 class WireRoundtrip(NamedTuple):
@@ -47,16 +65,14 @@ class WireRoundtrip(NamedTuple):
     payload: Optional[list]  # per-leaf packed uint8 codes (with_payload only)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1: {item})")
-
-
 class WireBackend:
     """Interface: radius reduction, the dense quantize roundtrip at a fixed
-    or a per-round width, and the sparse wire's quantize map.  The
-    per-leaf streamed methods of the sharded step and the receive side
-    raise until their ROADMAP items land."""
+    or a per-round width, the per-leaf primitives of the streamed sharded
+    wire, the receive side and the sparse wire's quantize map.
+
+    The per-leaf primitives' base-class bodies ARE the reference
+    expressions, so every backend inherits bit-identical wire content;
+    the fused backend overrides them only to launch the kernels."""
 
     name = "?"
 
@@ -80,14 +96,31 @@ class WireBackend:
         """``(codes uint8 [k], deq f32 [k])`` on the gathered survivors."""
         raise NotImplementedError
 
+    def leaf_absmax(self, g, qh):
+        """Scalar ``||g - qh||_inf`` for one leaf (f32): the radius
+        pre-pass of the streamed wire; an empty leaf gives 0."""
+        if not g.numel():
+            return torch.zeros((), dtype=F32, device=g.device)
+        return (g.to(F32) - qh.to(F32)).abs().amax()
+
     def leaf_quantize(self, g, qh, R, bits: int):
-        _not_ported("the streamed sharded wire", "Sharded step")
+        """``(codes, delta)`` of one leaf at one width, both leaf-shaped
+        (codes uint8, delta f32): the send-side sweep of the streamed
+        wire, whose axis codec packs the codes along the last dim."""
+        codes = quantize_codes(g.to(F32) - qh.to(F32), R, bits)
+        return codes, dequantize_leaf(codes, R, bits)
 
     def leaf_quantize_adaptive(self, g, qh, R, grid, onehot, t_sel):
-        _not_ported("the adaptive streamed wire", "Sharded step")
+        """:meth:`leaf_quantize` at the width ``onehot`` selects from the
+        ascending ``grid``; ``t_sel`` is ``tau_of_selection(grid,
+        onehot)``, computed once per round by the caller."""
+        codes = quantize_dynamic(g.to(F32) - qh.to(F32), R, grid, onehot)
+        return codes, dequantize_dynamic(codes, R, t_sel)
 
     def dequant_acc(self, packed, R, keep, bits: int, n: int, acc=None):
-        _not_ported("the receive side (dequant_acc)", "Receive side of the wire")
+        """Server side: ``(acc +) sum_w keep_w * dequant(packed_w, R_w)``,
+        float32 ``[n]``, from uint8 ``[W, nbytes]`` payloads."""
+        raise NotImplementedError
 
 
 class ReferenceWire(WireBackend):
@@ -114,6 +147,12 @@ class ReferenceWire(WireBackend):
 
     def sparse_quantize(self, vals, lo, hi, bits):
         return reference_sparse_quantize(vals, lo, hi, bits)
+
+    def dequant_acc(self, packed, R, keep, bits, n, acc=None):
+        """The reference's order: the workers summed from 0, then ``acc``
+        added to the sum (the fused backend adds ``acc`` first)."""
+        out = dequant_acc_ref(packed, R.to(F32), keep.to(F32), bits, n)
+        return out if acc is None else acc.reshape(-1).to(F32) + out
 
 
 class FusedWire(WireBackend):
@@ -183,6 +222,25 @@ class FusedWire(WireBackend):
         return (tree_unflatten(treedef, qnew_leaves),
                 tree_unflatten(treedef, delta_leaves),
                 torch.stack(err_parts).sum(), torch.stack(inn_parts).sum())
+
+    def leaf_quantize(self, g, qh, R, bits):
+        if not g.numel():
+            return super().leaf_quantize(g, qh, R, bits)
+        codes, delta = ops.quantize_codes_fused(g, qh, R, bits)
+        return codes.reshape(g.shape), delta.reshape(g.shape)
+
+    def leaf_quantize_adaptive(self, g, qh, R, grid, onehot, t_sel):
+        if not g.numel():
+            return super().leaf_quantize_adaptive(g, qh, R, grid, onehot,
+                                                  t_sel)
+        codes, delta = ops.quantize_codes_adaptive(g, qh, R, onehot,
+                                                   tuple(grid))
+        return codes.reshape(g.shape), delta.reshape(g.shape)
+
+    def dequant_acc(self, packed, R, keep, bits, n, acc=None):
+        """:func:`repro_torch.kernels.ops.dequant_acc` on either device:
+        ``acc`` first, then worker by worker."""
+        return ops.dequant_acc(packed, R.to(F32), keep.to(F32), bits, n, acc)
 
     def sparse_quantize(self, vals, lo, hi, bits):
         _, codes, deq = ops.sparse_quantize_pack(vals, lo, hi, bits)
@@ -255,3 +313,47 @@ def sparse_roundtrip(backend, grad, qhat, bits: int, k: int, mode: str,
                            err_sq=(err * err).sum(),
                            innovation_sq=(deq * deq).sum(), idx=sel.idx,
                            codes=codes, payload=payload)
+
+
+def delta_of_codes(codes: torch.Tensor, R, bits: int) -> torch.Tensor:
+    """Re-emit the dequantized leaf from (possibly edited) codes: the
+    expression of quantize.dequantize_innovation, per leaf."""
+    return dequantize_leaf(codes, torch.as_tensor(R, dtype=F32), bits)
+
+
+# ---------------------------------------------------------------------------
+# The axis-packed payload of the sharded wire: 8/b codes per byte ALONG THE
+# LAST DIM, little-end-first (docs/wire-format.md, section 3).  A leaf whose
+# last dim 8/b does not divide, and every leaf at b=8, ships raw codes.
+# ---------------------------------------------------------------------------
+
+def axis_packable(q: torch.Tensor, bits: int) -> bool:
+    cpb = 8 // bits
+    return cpb > 1 and q.dim() >= 1 and q.shape[-1] % cpb == 0
+
+
+def pack_codes_along_axis(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack 8/b codes per byte along the last dim (raw uint8 codes where
+    :func:`axis_packable` is False)."""
+    if not axis_packable(q, bits):
+        return q
+    cpb = 8 // bits
+    parts = q.reshape(q.shape[:-1] + (q.shape[-1] // cpb, cpb))
+    acc = parts[..., 0].clone()
+    for j in range(1, cpb):
+        acc |= parts[..., j] << (bits * j)
+    return acc
+
+
+def unpack_codes_along_axis(payload: torch.Tensor, bits: int,
+                            orig) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_along_axis`; ``orig`` (the leaf, or
+    anything with its ``shape`` and ``dim()``) gives the unpacked shape and
+    whether packing applied."""
+    if not axis_packable(orig, bits):
+        return payload
+    cpb = 8 // bits
+    shifts = torch.arange(cpb, dtype=torch.uint8,
+                          device=payload.device) * bits
+    parts = (payload[..., None] >> shifts) & ((1 << bits) - 1)
+    return parts.reshape(orig.shape)

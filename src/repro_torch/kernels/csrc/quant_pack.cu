@@ -55,6 +55,38 @@
 //   The tail byte's unused lanes carry the midpoint code 2^b / 2, as the
 //   canonical sparse payload does.
 //
+// laq_quantize_codes replaces quantize_codes_pallas and, at a width the
+// host picks, quantize_codes_adaptive_pallas (same file):
+//   the sharded wire's send-side sweep: the b-bit codes UNPACKED, one byte
+//   each (the wire packs them along the leaf's last dim itself), and
+//   delta.  Bound: bytes: it reads 8 B and writes 1 + 4 B per element.
+//   Design: kernel 2's group of 8 elements per thread, 16-byte loads and
+//   delta stores, one 8-byte store of the 8 codes.  The adaptive width is
+//   chosen on the host before the launch (select_bits), so the wrapper
+//   picks the template arm <b>: a pinned width is the fixed-width kernel.
+//
+// laq_quantize_pack_payload replaces quantize_pack_payload_pallas (same
+// file):
+//   kernel 2 without q_new and the moments: the codes packed at b, and
+//   delta.  The payload keeps the Pallas wrapper's padding to a multiple of
+//   4096 elements byte for byte: the pad elements are quantized as d = 0
+//   under R, as the Pallas kernel quantizes its zero-padded input.  Bound:
+//   bytes: it reads 8 B and writes 4 + b/8 B per element.  Same body as
+//   laq_quantize_codes, with the 8 codes of a group packed into b bytes.
+//
+// laq_dequant_acc replaces dequant_acc_pallas (same file):
+//   the receive side: out = acc + sum_w keep_w * delta_w(code, R_w) from W
+//   packed payload rows.  Bound: bytes: it reads W b/8 B (+ 4 B with acc)
+//   and writes 4 B per element.  Design: a thread takes 8 consecutive
+//   elements, which are b whole bytes of each row: one load of b bytes per
+//   row, 8 codes unpacked in registers, and 16-byte acc loads and out
+//   stores.  The W per-worker constants (2 tau R_w, R_w > 0, keep_w) sit in
+//   shared memory; W is a run-time argument up to kMaxWorkers, and the
+//   worker loop is unrolled by 4.  The sum order is the Pallas kernel's,
+//   fixed and without atomics: acc (or 0) first, then worker by worker,
+//   each term delta_w * keep_w rounded before the add (keep is a 0/1 mask,
+//   so the product is exact and an FMA would give the same bits).
+//
 // Rounding of the dense kernels, held bit for bit against the JAX
 // reference under jit:
 //   denom = f32(2 tau) * R        (2 tau folded in double on the host)
@@ -71,6 +103,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxWorkers = 64;              // rows of one laq_dequant_acc
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   // NaN-propagating max of two non-negative values
@@ -139,6 +172,13 @@ __global__ void max_partials_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[0] = m;
 }
 
+// clamp(floor((d + R) / denom + 0.5), 0, levels); a NaN quotient gives 0
+__device__ __forceinline__ float code_of(float d, float R, float denom,
+                                         float levels) {
+  const float q = floorf(__fadd_rn(__fdiv_rn(__fadd_rn(d, R), denom), 0.5f));
+  return fminf(fmaxf(q, 0.f), levels);
+}
+
 template <int BITS>
 __device__ __forceinline__ void store_packed(uint8_t* p, uint64_t word) {
   if constexpr (BITS == 8) {
@@ -204,8 +244,7 @@ quantize_pack_kernel(const float* __restrict__ g, const float* __restrict__ qh,
       const float d = __fsub_rn(gv[j], qv[j]);
       float qf = (float)kMid, dv = 0.f;
       if (live) {
-        qf = floorf(__fadd_rn(__fdiv_rn(__fadd_rn(d, R), denom), 0.5f));
-        qf = fminf(fmaxf(qf, 0.f), (float)kLevels);
+        qf = code_of(d, R, denom, (float)kLevels);
         dv = __fmaf_rn(denom, qf, neg_R);
       }
       const float qnv = __fadd_rn(qv[j], dv);
@@ -344,6 +383,168 @@ sparse_quantize_pack_kernel(const float* __restrict__ vals,
   }
 }
 
+// PACK == false: codes one byte each over the n elements (kernels 5, 6).
+// PACK == true: codes packed at BITS over npad elements, npad a multiple
+// of 8 and >= n, the pad quantized as d = 0 (kernel 3).
+template <int BITS, bool PACK>
+__global__ void __launch_bounds__(kThreads)
+quantize_codes_kernel(const float* __restrict__ g, const float* __restrict__ qh,
+                      const float* __restrict__ Rp, float two_tau, int64_t n,
+                      int64_t npad, int aligned, uint8_t* __restrict__ codes,
+                      float* __restrict__ delta) {
+  constexpr int kLevels = (1 << BITS) - 1;
+  constexpr uint32_t kMid = (kLevels + 1) / 2;
+  constexpr int kLane = PACK ? BITS : 8;     // bits of a code in `codes`
+  const float R = Rp[0];
+  const bool live = R > 0.f;                 // false for R == 0 and NaN
+  const float denom = live ? __fmul_rn(two_tau, R) : 1.f;
+  const float neg_R = -R;
+  const int64_t ngroups = (npad + 7) / 8;
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+
+  for (int64_t gi = tid; gi < ngroups; gi += stride) {
+    const int64_t base = gi * 8;
+    const bool full = base + 8 <= n;
+    float gv[8], qv[8];
+    if (full && aligned) {
+      const float4* g4 = reinterpret_cast<const float4*>(g + base);
+      const float4* q4 = reinterpret_cast<const float4*>(qh + base);
+      const float4 a0 = __ldg(g4), a1 = __ldg(g4 + 1);
+      const float4 b0 = __ldg(q4), b1 = __ldg(q4 + 1);
+      gv[0] = a0.x; gv[1] = a0.y; gv[2] = a0.z; gv[3] = a0.w;
+      gv[4] = a1.x; gv[5] = a1.y; gv[6] = a1.z; gv[7] = a1.w;
+      qv[0] = b0.x; qv[1] = b0.y; qv[2] = b0.z; qv[3] = b0.w;
+      qv[4] = b1.x; qv[5] = b1.y; qv[6] = b1.z; qv[7] = b1.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool in = base + j < n;          // the pad reads as 0 - 0
+        gv[j] = in ? g[base + j] : 0.f;
+        qv[j] = in ? qh[base + j] : 0.f;
+      }
+    }
+
+    float dl[8];
+    uint64_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float qf = (float)kMid, dv = 0.f;
+      if (live) {
+        qf = code_of(__fsub_rn(gv[j], qv[j]), R, denom, (float)kLevels);
+        dv = __fmaf_rn(denom, qf, neg_R);
+      }
+      dl[j] = dv;
+      word |= (uint64_t)(uint32_t)qf << (kLane * j);
+    }
+
+    if (full && aligned) {
+      float4* d4 = reinterpret_cast<float4*>(delta + base);
+      d4[0] = make_float4(dl[0], dl[1], dl[2], dl[3]);
+      d4[1] = make_float4(dl[4], dl[5], dl[6], dl[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (base + j < n) delta[base + j] = dl[j];
+    }
+    if constexpr (PACK) {                    // whole groups: npad % 8 == 0
+      if (aligned) {
+        store_packed<BITS>(codes + gi * BITS, word);
+      } else {
+        for (int k = 0; k < BITS; ++k)
+          codes[gi * BITS + k] = (uint8_t)(word >> (8 * k));
+      }
+    } else if (full && aligned) {
+      store_packed<8>(codes + base, word);
+    } else {
+      for (int j = 0; j < 8; ++j)
+        if (base + j < n) codes[base + j] = (uint8_t)(word >> (8 * j));
+    }
+  }
+}
+
+template <int BITS>
+__device__ __forceinline__ uint64_t load_packed(const uint8_t* p) {
+  if constexpr (BITS == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return (uint64_t)v.x | ((uint64_t)v.y << 32);
+  } else if constexpr (BITS == 4) {
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  } else if constexpr (BITS == 2) {
+    return __ldg(reinterpret_cast<const uint16_t*>(p));
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <int BITS, bool ACC>
+__global__ void __launch_bounds__(kThreads)
+dequant_acc_kernel(const uint8_t* __restrict__ packed, int64_t row_bytes,
+                   int W, const float* __restrict__ Rp,
+                   const float* __restrict__ keep_p, float two_tau, int64_t n,
+                   int aligned, const float* __restrict__ acc,
+                   float* __restrict__ out) {
+  constexpr uint32_t kMask = (1u << BITS) - 1;
+  __shared__ float sh_denom[kMaxWorkers], sh_neg_R[kMaxWorkers],
+      sh_keep[kMaxWorkers];
+  __shared__ bool sh_live[kMaxWorkers];
+  for (int w = threadIdx.x; w < W; w += kThreads) {
+    const float R = Rp[w];
+    sh_live[w] = R > 0.f;                    // false for R == 0 and NaN
+    sh_denom[w] = __fmul_rn(two_tau, R);
+    sh_neg_R[w] = -R;
+    sh_keep[w] = keep_p[w];
+  }
+  __syncthreads();
+  const int64_t ngroups = (n + 7) / 8;
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+
+  for (int64_t gi = tid; gi < ngroups; gi += stride) {
+    const int64_t base = gi * 8;
+    const bool full = base + 8 <= n;
+    float o[8];
+    if (ACC && full && aligned) {
+      const float4* a4 = reinterpret_cast<const float4*>(acc + base);
+      const float4 a0 = __ldg(a4), a1 = __ldg(a4 + 1);
+      o[0] = a0.x; o[1] = a0.y; o[2] = a0.z; o[3] = a0.w;
+      o[4] = a1.x; o[5] = a1.y; o[6] = a1.z; o[7] = a1.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[j] = (ACC && base + j < n) ? acc[base + j] : 0.f;
+    }
+#pragma unroll 4
+    for (int w = 0; w < W; ++w) {
+      const uint8_t* row = packed + w * row_bytes + gi * BITS;
+      uint64_t word = 0;
+      if (aligned && gi * BITS + BITS <= row_bytes) {
+        word = load_packed<BITS>(row);
+      } else {
+        for (int k = 0; k < BITS; ++k)
+          if (gi * BITS + k < row_bytes) word |= (uint64_t)row[k] << (8 * k);
+      }
+      const bool live = sh_live[w];
+      const float denom = sh_denom[w], neg_R = sh_neg_R[w], kw = sh_keep[w];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float q = (float)((uint32_t)(word >> (BITS * j)) & kMask);
+        const float dv = live ? __fmaf_rn(denom, q, neg_R) : 0.f;
+        o[j] = __fadd_rn(o[j], __fmul_rn(dv, kw));
+      }
+    }
+    if (full && aligned) {
+      float4* o4 = reinterpret_cast<float4*>(out + base);
+      o4[0] = make_float4(o[0], o[1], o[2], o[3]);
+      o4[1] = make_float4(o[4], o[5], o[6], o[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (base + j < n) out[base + j] = o[j];
+    }
+  }
+}
+
 __global__ void sum_partials_kernel(const double* __restrict__ err_part,
                                     const double* __restrict__ inn_part,
                                     int nparts, float* __restrict__ out) {
@@ -382,11 +583,56 @@ cudaError_t launch_sparse(const float* vals, const float* lo, const float* hi,
   return cudaGetLastError();
 }
 
+template <int BITS, bool PACK>
+cudaError_t launch_codes(const float* g, const float* qh, const float* R,
+                         float two_tau, int64_t n, int64_t npad, int aligned,
+                         uint8_t* codes, float* delta, int nblocks,
+                         cudaStream_t stream) {
+  quantize_codes_kernel<BITS, PACK><<<nblocks, kThreads, 0, stream>>>(
+      g, qh, R, two_tau, n, npad, aligned, codes, delta);
+  return cudaGetLastError();
+}
+
+template <bool PACK>
+cudaError_t launch_codes_at(int bits, const float* g, const float* qh,
+                            const float* R, float two_tau, int64_t n,
+                            int64_t npad, int aligned, uint8_t* codes,
+                            float* delta, int nblocks, cudaStream_t stream) {
+  switch (bits) {
+    case 1: return launch_codes<1, PACK>(g, qh, R, two_tau, n, npad, aligned,
+                                         codes, delta, nblocks, stream);
+    case 2: return launch_codes<2, PACK>(g, qh, R, two_tau, n, npad, aligned,
+                                         codes, delta, nblocks, stream);
+    case 4: return launch_codes<4, PACK>(g, qh, R, two_tau, n, npad, aligned,
+                                         codes, delta, nblocks, stream);
+    case 8: return launch_codes<8, PACK>(g, qh, R, two_tau, n, npad, aligned,
+                                         codes, delta, nblocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int BITS>
+cudaError_t launch_dequant(const uint8_t* packed, int64_t row_bytes, int W,
+                           const float* R, const float* keep, float two_tau,
+                           int64_t n, int aligned, const float* acc,
+                           float* out, int nblocks, cudaStream_t stream) {
+  if (acc) {
+    dequant_acc_kernel<BITS, true><<<nblocks, kThreads, 0, stream>>>(
+        packed, row_bytes, W, R, keep, two_tau, n, aligned, acc, out);
+  } else {
+    dequant_acc_kernel<BITS, false><<<nblocks, kThreads, 0, stream>>>(
+        packed, row_bytes, W, R, keep, two_tau, n, aligned, acc, out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int laq_threads_per_block() { return kThreads; }
+
+int laq_max_workers() { return kMaxWorkers; }
 
 // R_out[0] = max |g - qh| over n elements; partial holds nparts floats.
 int laq_absmax(const float* g, const float* qh, long long n, int aligned,
@@ -447,6 +693,54 @@ int laq_sparse_quantize_pack(const float* vals, const float* lo,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// Unpacked codes [n] and delta [n] of one leaf at width bits.
+int laq_quantize_codes(const float* g, const float* qh, const float* R,
+                       float two_tau, int bits, long long n, int aligned,
+                       uint8_t* codes, float* delta, int nblocks,
+                       void* stream) {
+  return (int)launch_codes_at<false>(bits, g, qh, R, two_tau, n, n, aligned,
+                                     codes, delta, nblocks,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// Codes packed at bits over npad (a multiple of 8, >= n) elements, the pad
+// quantized as d = 0, and delta [n].
+int laq_quantize_pack_payload(const float* g, const float* qh, const float* R,
+                              float two_tau, int bits, long long n,
+                              long long npad, int aligned, uint8_t* packed,
+                              float* delta, int nblocks, void* stream) {
+  if (npad % 8 != 0 || npad < n) return (int)cudaErrorInvalidValue;
+  return (int)launch_codes_at<true>(bits, g, qh, R, two_tau, n, npad, aligned,
+                                    packed, delta, nblocks,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// out[n] = (acc or 0) + sum_w keep[w] * delta_w from W rows of row_bytes
+// packed bytes each; acc may be null.
+int laq_dequant_acc(const uint8_t* packed, long long row_bytes, int W,
+                    const float* R, const float* keep, float two_tau, int bits,
+                    long long n, int aligned, const float* acc, float* out,
+                    int nblocks, void* stream) {
+  if (W < 1 || W > kMaxWorkers || row_bytes * 8 / bits < n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 1: return (int)launch_dequant<1>(packed, row_bytes, W, R, keep,
+                                          two_tau, n, aligned, acc, out,
+                                          nblocks, s);
+    case 2: return (int)launch_dequant<2>(packed, row_bytes, W, R, keep,
+                                          two_tau, n, aligned, acc, out,
+                                          nblocks, s);
+    case 4: return (int)launch_dequant<4>(packed, row_bytes, W, R, keep,
+                                          two_tau, n, aligned, acc, out,
+                                          nblocks, s);
+    case 8: return (int)launch_dequant<8>(packed, row_bytes, W, R, keep,
+                                          two_tau, n, aligned, acc, out,
+                                          nblocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -9,15 +9,19 @@ launches, so a run can show that its main path went through the kernel.
 
 Unlike the Pallas wrappers, nothing is padded to a block: the CUDA kernels
 mask the ragged tail themselves, and the payload is ``ceil(n b / 8)``
-bytes.
+bytes.  The exception is :func:`quantize_pack`, whose payload keeps the
+Pallas wrapper's padding to 4096 elements byte for byte (its callers
+compare payloads with the reference's).
 """
 from __future__ import annotations
 
 import torch
 
 from . import quant_pack
-from .ref import (absmax_ref, quantize_pack_adaptive_ref,
-                  quantize_pack_fused_ref, sparse_quantize_pack_ref)
+from .ref import (absmax_ref, dequant_acc_ref, quantize_codes_adaptive_ref,
+                  quantize_codes_ref, quantize_pack_adaptive_ref,
+                  quantize_pack_fused_ref, quantize_pack_payload_ref,
+                  sparse_quantize_pack_ref)
 
 PACKED_BITS = (1, 2, 4, 8)
 
@@ -88,6 +92,22 @@ def quantize_pack_fused(grad: torch.Tensor, qhat: torch.Tensor,
 quantize_pack_fused.launches = 0
 
 
+def _selection(onehot, grid) -> int:
+    """Index of the width ``onehot`` selects from the ascending ``grid``
+    (read on the host: ``onehot`` comes from ``adaptive.select_bits``)."""
+    for b in grid:
+        _check_bits(b)
+    if list(grid) != sorted(grid) or len(onehot) != len(grid):
+        raise ValueError(f"grid {grid} must be ascending, one onehot entry "
+                         f"per width (got {len(onehot)})")
+    return int(torch.as_tensor(onehot).argmax())
+
+
+def _count_width(wrapper, b):
+    wrapper.launches += 1
+    wrapper.launches_by_width[b] = wrapper.launches_by_width.get(b, 0) + 1
+
+
 def quantize_pack_adaptive(grad: torch.Tensor, qhat: torch.Tensor,
                            R: torch.Tensor, onehot, grid: tuple):
     """Adaptive pass 2: :func:`quantize_pack_fused` at the width ``onehot``
@@ -101,21 +121,14 @@ def quantize_pack_adaptive(grad: torch.Tensor, qhat: torch.Tensor,
     Returns ``(packed, delta, q_new, err_sq, innovation_sq)``.
     """
     grid = tuple(grid)
-    for b in grid:
-        _check_bits(b)
-    if list(grid) != sorted(grid) or len(onehot) != len(grid):
-        raise ValueError(f"grid {grid} must be ascending, one onehot entry "
-                         f"per width (got {len(onehot)})")
-    sel = int(torch.as_tensor(onehot).argmax())
+    sel = _selection(onehot, grid)
     g, qh = _flat_pair(grad, qhat)
     _check_scalar("R", R, g.device)
     if g.device.type == "cpu":
         return quantize_pack_adaptive_ref(g, qh, R.reshape(()), grid, sel)
     out = quant_pack.quantize_pack_cuda(g, qh, R.reshape(()).contiguous(),
                                         grid[sel], max(grid))
-    quantize_pack_adaptive.launches += 1
-    by_width = quantize_pack_adaptive.launches_by_width
-    by_width[grid[sel]] = by_width.get(grid[sel], 0) + 1
+    _count_width(quantize_pack_adaptive, grid[sel])
     return out
 
 
@@ -152,3 +165,113 @@ def sparse_quantize_pack(vals: torch.Tensor, lo: torch.Tensor,
 
 
 sparse_quantize_pack.launches = 0
+
+
+def quantize_codes_fused(grad: torch.Tensor, qhat: torch.Tensor,
+                         R: torch.Tensor, bits: int):
+    """Pass 2 of the streamed sharded wire: codes and delta in one sweep,
+    the codes left unpacked (the wire packs them along the leaf's last dim
+    itself, ``core/wire.py`` ``pack_codes_along_axis``).
+
+    Returns ``(codes uint8 [n], delta f32 [n])``; callers reshape them to
+    the leaf's shape.
+    """
+    _check_bits(bits)
+    g, qh = _flat_pair(grad, qhat)
+    _check_scalar("R", R, g.device)
+    if g.device.type == "cpu":
+        return quantize_codes_ref(g, qh, R.reshape(()), bits)
+    out = quant_pack.quantize_codes_cuda(g, qh, R.reshape(()).contiguous(),
+                                         bits)
+    quantize_codes_fused.launches += 1
+    return out
+
+
+quantize_codes_fused.launches = 0
+
+
+def quantize_codes_adaptive(grad: torch.Tensor, qhat: torch.Tensor,
+                            R: torch.Tensor, onehot, grid: tuple):
+    """:func:`quantize_codes_fused` at the width ``onehot`` selects from the
+    ascending static ``grid``.  The selection is read on the host, which
+    picks the kernel's arm, so a pinned width is
+    :func:`quantize_codes_fused` at that width bit for bit.
+
+    Returns ``(codes uint8 [n], delta f32 [n])``.
+    """
+    grid = tuple(grid)
+    sel = _selection(onehot, grid)
+    g, qh = _flat_pair(grad, qhat)
+    _check_scalar("R", R, g.device)
+    if g.device.type == "cpu":
+        return quantize_codes_adaptive_ref(g, qh, R.reshape(()), grid, sel)
+    out = quant_pack.quantize_codes_cuda(g, qh, R.reshape(()).contiguous(),
+                                         grid[sel])
+    _count_width(quantize_codes_adaptive, grid[sel])
+    return out
+
+
+quantize_codes_adaptive.launches = 0
+# the same launches split by the selected width (the kernel's arm)
+quantize_codes_adaptive.launches_by_width = {}
+
+
+def quantize_pack(grad: torch.Tensor, qhat: torch.Tensor, R: torch.Tensor,
+                  bits: int):
+    """Payload-only pass 2: ``(packed uint8 [ceil(n / 4096) * 4096 * b /
+    8], delta f32 [n])``, no q_new and no moments.  The payload is padded
+    as the Pallas wrapper pads it: the pad elements are quantized as
+    ``d = 0`` under R."""
+    _check_bits(bits)
+    g, qh = _flat_pair(grad, qhat)
+    _check_scalar("R", R, g.device)
+    if g.device.type == "cpu":
+        return quantize_pack_payload_ref(g, qh, R.reshape(()), bits)
+    out = quant_pack.quantize_pack_payload_cuda(
+        g, qh, R.reshape(()).contiguous(), bits)
+    quantize_pack.launches += 1
+    return out
+
+
+quantize_pack.launches = 0
+
+
+def dequant_acc(packed: torch.Tensor, R: torch.Tensor, keep: torch.Tensor,
+                bits: int, n: int, acc: torch.Tensor = None) -> torch.Tensor:
+    """Receive side: ``acc + sum_w keep_w * delta_w`` decoded from the
+    packed payloads ``packed`` uint8 ``[W, nbytes]`` with ``nbytes * 8 / b
+    >= n`` (a block-padded payload from :func:`quantize_pack` is taken as
+    it is), radii ``R`` and 0/1 mask ``keep`` float32 ``[W]``.  Returns
+    float32 ``[n]``.
+
+    The sum runs as the Pallas kernel runs it: ``acc`` first, then worker
+    by worker (``((acc + d_0) + d_1) + ...``, from 0 without ``acc``).
+    """
+    _check_bits(bits)
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise TypeError(f"packed must be uint8 [W, nbytes], got "
+                        f"{packed.dtype} {tuple(packed.shape)}")
+    W, nbytes = packed.shape
+    dev = packed.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed on unsupported device {dev}")
+    if nbytes * 8 // bits < n:
+        raise ValueError(f"{nbytes} bytes per worker hold {nbytes * 8 // bits}"
+                         f" codes at b={bits}, fewer than n={n}")
+    for name, x in (("R", R), ("keep", keep)):
+        if x.dtype != torch.float32 or x.shape != (W,) or x.device != dev:
+            raise ValueError(f"{name} must be float32 [{W}] on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if acc is not None and (acc.dtype != torch.float32 or acc.numel() != n
+                            or acc.device != dev):
+        raise ValueError(f"acc must be float32 with {n} elements on {dev}")
+    if dev.type == "cpu":
+        return dequant_acc_ref(packed, R, keep, bits, n, acc)
+    out = quant_pack.dequant_acc_cuda(
+        packed.contiguous(), R.contiguous(), keep.contiguous(), bits, n,
+        None if acc is None else acc.reshape(-1).contiguous())
+    dequant_acc.launches += 1
+    return out
+
+
+dequant_acc.launches = 0

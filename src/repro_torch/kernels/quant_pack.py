@@ -23,6 +23,7 @@ import torch
 
 from ..core.compressors import inv_levels
 from ..core.quantize import tau
+from .ref import BLOCK
 
 SOURCE = Path(__file__).parent / "csrc" / "quant_pack.cu"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -76,10 +77,25 @@ class _Library:
             _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP]
         lib.laq_sparse_quantize_pack.restype = ctypes.c_int
-        lib.laq_threads_per_block.argtypes = []
-        lib.laq_threads_per_block.restype = ctypes.c_int
+        lib.laq_quantize_codes.argtypes = [
+            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, _VP, _VP, ctypes.c_int, _VP]
+        lib.laq_quantize_codes.restype = ctypes.c_int
+        lib.laq_quantize_pack_payload.argtypes = [
+            _VP, _VP, _VP, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, _VP, _VP, ctypes.c_int, _VP]
+        lib.laq_quantize_pack_payload.restype = ctypes.c_int
+        lib.laq_dequant_acc.argtypes = [
+            _VP, ctypes.c_longlong, ctypes.c_int, _VP, _VP, ctypes.c_float,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _VP, _VP,
+            ctypes.c_int, _VP]
+        lib.laq_dequant_acc.restype = ctypes.c_int
+        for fn in (lib.laq_threads_per_block, lib.laq_max_workers):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         self.lib = lib
         self.threads = lib.laq_threads_per_block()
+        self.max_workers = lib.laq_max_workers()
 
 
 _LIBRARY: _Library | None = None
@@ -108,6 +124,11 @@ def _aligned(*tensors) -> int:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _two_tau(bits: int) -> float:
+    """``f32(2 tau)``, folded in double and rounded once."""
+    return float(torch.tensor(2.0 * tau(bits), dtype=torch.float32))
 
 
 def absmax_cuda(g: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
@@ -140,9 +161,9 @@ def quantize_pack_cuda(g: torch.Tensor, qh: torch.Tensor, R: torch.Tensor,
     nparts = _grid(-(-n // 8), lib.threads)
     parts = torch.empty((2, nparts), dtype=torch.float64, device=dev)
     moments = torch.empty(2, dtype=torch.float32, device=dev)
-    two_tau = float(torch.tensor(2.0 * tau(bits), dtype=torch.float32))
     _check(lib.lib.laq_quantize_pack(
-        g.data_ptr(), qh.data_ptr(), R.data_ptr(), two_tau, bits, lane_bits,
+        g.data_ptr(), qh.data_ptr(), R.data_ptr(), _two_tau(bits), bits,
+        lane_bits,
         n, _aligned(g, qh, packed, delta, q_new), packed.data_ptr(),
         delta.data_ptr(), q_new.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), nparts, moments.data_ptr(), _stream(g)),
@@ -167,3 +188,57 @@ def sparse_quantize_pack_cuda(vals: torch.Tensor, lo: torch.Tensor,
         codes.data_ptr(), deq.data_ptr(), _grid(-(-k // 8), lib.threads),
         _stream(vals)), "laq_sparse_quantize_pack")
     return packed, codes, deq
+
+
+def quantize_codes_cuda(g: torch.Tensor, qh: torch.Tensor, R: torch.Tensor,
+                        bits: int):
+    """``(codes uint8 [n], delta f32 [n])`` for one flat leaf, the codes
+    unpacked."""
+    lib = library()
+    n = g.numel()
+    codes = torch.empty(n, dtype=torch.uint8, device=g.device)
+    delta = torch.empty(n, dtype=torch.float32, device=g.device)
+    _check(lib.lib.laq_quantize_codes(
+        g.data_ptr(), qh.data_ptr(), R.data_ptr(), _two_tau(bits), bits, n,
+        _aligned(g, qh, codes, delta), codes.data_ptr(), delta.data_ptr(),
+        _grid(-(-n // 8), lib.threads), _stream(g)), "laq_quantize_codes")
+    return codes, delta
+
+
+def quantize_pack_payload_cuda(g: torch.Tensor, qh: torch.Tensor,
+                               R: torch.Tensor, bits: int):
+    """``(packed uint8 [ceil(n / 4096) * 4096 * b / 8], delta f32 [n])``
+    for one flat leaf; the pad elements are quantized as ``d = 0``."""
+    lib = library()
+    n = g.numel()
+    npad = -(-n // BLOCK) * BLOCK
+    packed = torch.empty(npad * bits // 8, dtype=torch.uint8, device=g.device)
+    delta = torch.empty(n, dtype=torch.float32, device=g.device)
+    _check(lib.lib.laq_quantize_pack_payload(
+        g.data_ptr(), qh.data_ptr(), R.data_ptr(), _two_tau(bits), bits, n,
+        npad, _aligned(g, qh, packed, delta), packed.data_ptr(),
+        delta.data_ptr(), _grid(npad // 8, lib.threads), _stream(g)),
+        "laq_quantize_pack_payload")
+    return packed, delta
+
+
+def dequant_acc_cuda(packed: torch.Tensor, R: torch.Tensor,
+                     keep: torch.Tensor, bits: int, n: int,
+                     acc: torch.Tensor = None) -> torch.Tensor:
+    """``(acc or 0) + sum_w keep_w * delta_w`` as float32 ``[n]`` from the
+    contiguous uint8 rows ``packed [W, nbytes]`` and the float32 ``[W]``
+    radii and 0/1 mask, all on the card."""
+    lib = library()
+    W, nbytes = packed.shape
+    if not 1 <= W <= lib.max_workers:
+        raise ValueError(f"laq_dequant_acc takes 1 to {lib.max_workers} "
+                         f"workers, got {W}")
+    out = torch.empty(n, dtype=torch.float32, device=packed.device)
+    vec = [packed, out] + ([] if acc is None else [acc])
+    aligned = _aligned(*vec) and nbytes % 8 == 0
+    _check(lib.lib.laq_dequant_acc(
+        packed.data_ptr(), nbytes, W, R.data_ptr(), keep.data_ptr(),
+        _two_tau(bits), bits, n, int(aligned),
+        None if acc is None else acc.data_ptr(), out.data_ptr(),
+        _grid(-(-n // 8), lib.threads), _stream(packed)), "laq_dequant_acc")
+    return out

@@ -11,7 +11,9 @@ import torch
 
 from ..core.compressors import reference_sparse_quantize
 from ..core.quantize import (dequantize_leaf, pack_codes, pad_codes,
-                             quantize_codes)
+                             quantize_codes, unpack_codes)
+
+BLOCK = 4096    # the Pallas kernels' block: kernel 3's payload is padded to it
 
 
 def absmax_ref(grad: torch.Tensor, qhat: torch.Tensor) -> torch.Tensor:
@@ -67,3 +69,52 @@ def sparse_quantize_pack_ref(vals: torch.Tensor, lo: torch.Tensor,
     canonical sparse payload does."""
     codes, deq = reference_sparse_quantize(vals.reshape(-1), lo, hi, bits)
     return pack_codes(pad_codes(codes, bits), bits), codes, deq
+
+
+def quantize_codes_ref(grad: torch.Tensor, qhat: torch.Tensor,
+                       R: torch.Tensor, bits: int):
+    """Oracle of the sharded wire's send-side sweep on one flat leaf:
+    ``(codes uint8 [n], delta f32 [n])``, the codes left unpacked."""
+    d = grad.reshape(-1).float() - qhat.reshape(-1).float()
+    q = quantize_codes(d, R, bits)
+    return q, dequantize_leaf(q, R, bits)
+
+
+def quantize_codes_adaptive_ref(grad: torch.Tensor, qhat: torch.Tensor,
+                                R: torch.Tensor, grid: tuple, sel: int):
+    """Oracle of the width-switched send-side sweep: :func:`quantize_codes_ref`
+    at ``b = grid[sel]``."""
+    return quantize_codes_ref(grad, qhat, R, grid[sel])
+
+
+def quantize_pack_payload_ref(grad: torch.Tensor, qhat: torch.Tensor,
+                              R: torch.Tensor, bits: int):
+    """Oracle of the payload-only pass 2: ``(packed uint8 [ceil(n / 4096)
+    * 4096 * b / 8], delta f32 [n])``.  The payload keeps the Pallas
+    kernel's block padding byte for byte: the pad elements are quantized
+    as ``d = 0`` under R, as the kernel quantizes its zero-padded input."""
+    d = grad.reshape(-1).float() - qhat.reshape(-1).float()
+    n = d.numel()
+    pad = (-n) % BLOCK
+    if pad:
+        d = torch.cat([d, d.new_zeros(pad)])
+    q = quantize_codes(d, R, bits)
+    return pack_codes(q, bits), dequantize_leaf(q[:n], R, bits)
+
+
+def dequant_acc_ref(packed: torch.Tensor, R: torch.Tensor,
+                    keep: torch.Tensor, bits: int, n: int,
+                    acc: torch.Tensor = None) -> torch.Tensor:
+    """Oracle of the receive side: ``acc + sum_w keep_w * delta_w`` from the
+    packed payloads ``[W, nbytes]`` (``nbytes * 8 / b >= n``; a padded
+    payload's tail is ignored), f32 ``[n]``.
+
+    The sum runs in the Pallas kernel's order: ``acc`` first, then worker
+    by worker, ``((acc + d_0) + d_1) + ...``, starting from 0 without
+    ``acc``.  ``keep`` is a 0/1 mask, so ``delta_w * keep_w`` is exact."""
+    out = (torch.zeros(n, dtype=torch.float32, device=packed.device)
+           if acc is None else acc.reshape(-1).float().clone())
+    for w in range(packed.shape[0]):
+        q = unpack_codes(packed[w], bits)[:n]
+        out += dequantize_leaf(q, R[w], bits) * keep[w]
+    return out

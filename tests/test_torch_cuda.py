@@ -6,7 +6,10 @@ card.  Every test here is marked ``cuda`` and skips where
 
 These are small, quick cases (the first call builds the kernels with
 ``nvcc``); ``chip_smoke.py`` holds the kernels at the model's own leaf
-shapes.  R, codes, packed bytes, delta and q_new are bitwise; the moments
+shapes.  Kernels 5, 6, 3 and 8 (``quantize_codes_fused``,
+``quantize_codes_adaptive``, ``quantize_pack``, ``dequant_acc``) are
+bitwise throughout, kernel 8 in the Pallas kernel's order (acc first);
+the last test runs the sharded step on one NCCL worker.  R, codes, packed bytes, delta and q_new are bitwise; the moments
 agree to rtol 1e-5, because the kernel sums per thread in float64 and the
 plain version reduces in float32.
 """
@@ -164,3 +167,158 @@ def test_sparse_kernel_edge_grids(cuda, bits):
     tiny[0] = 1e-30
     a = tiny.abs()
     _sparse_check(tiny, a.amin(), a.amax(), bits)
+
+
+# --- kernels 5, 6, 3 and 8 ------------------------------------------------
+
+def _codes_check(g, qh, bits):
+    before = (ops.quantize_codes_fused.launches, ops.quantize_pack.launches)
+    R = ops.absmax(g, qh)
+    codes = ops.quantize_codes_fused(g, qh, R, bits)
+    payload = ops.quantize_pack(g, qh, R, bits)
+    torch.cuda.synchronize()
+    assert (ops.quantize_codes_fused.launches,
+            ops.quantize_pack.launches) == (before[0] + 1, before[1] + 1)
+    for got, want, names in (
+            (codes, ref.quantize_codes_ref(g, qh, R, bits), ("codes", "delta")),
+            (payload, ref.quantize_pack_payload_ref(g, qh, R, bits),
+             ("packed", "delta"))):
+        for name, a, b in zip(names, got, want):
+            assert a.shape == b.shape and torch.equal(a, b), name
+    return R, codes, payload
+
+
+@pytest.mark.parametrize("case", LENGTHS)
+@pytest.mark.parametrize("bits", (1, 2, 4, 8))
+def test_codes_and_payload_kernels_match_plain_versions(cuda, bits, case):
+    n, shift = LENGTHS[case]
+    g, qh = _pair(cuda, n, shift, seed=bits * 13 + n)
+    _, _, (packed, _) = _codes_check(g, qh, bits)
+    assert packed.numel() == -(-n // 4096) * 4096 * bits // 8
+
+
+@pytest.mark.parametrize("bits", (1, 2, 4, 8))
+def test_codes_kernels_zero_radius_and_nan(cuda, bits):
+    g, _ = _pair(cuda, 4096 + 5, 0, seed=bits)
+    R, (codes, delta), _ = _codes_check(g, g.clone(), bits)
+    assert float(R) == 0.0 and not delta.any()
+    assert bool((codes == 2 ** (bits - 1)).all())
+    g, qh = _pair(cuda, 50_000, 0, seed=3)
+    g[4321] = float("nan")
+    R, (codes, delta), _ = _codes_check(g, qh, bits)
+    assert R.isnan() and not delta.any()
+
+
+@pytest.mark.parametrize("case", LENGTHS)
+@pytest.mark.parametrize("sel", (0, 1, 2))
+def test_adaptive_codes_kernel_is_kernel_5_at_the_width(cuda, sel, case):
+    grid = (2, 4, 8)
+    n, shift = LENGTHS[case]
+    g, qh = _pair(cuda, n, shift, seed=sel + n)
+    R = ops.absmax(g, qh)
+    before = dict(ops.quantize_codes_adaptive.launches_by_width)
+    got = ops.quantize_codes_adaptive(g, qh, R, torch.eye(3)[sel], grid)
+    torch.cuda.synchronize()
+    after = ops.quantize_codes_adaptive.launches_by_width
+    assert after[grid[sel]] == before.get(grid[sel], 0) + 1
+    want = ref.quantize_codes_adaptive_ref(g, qh, R, grid, sel)
+    fixed = ops.quantize_codes_fused(g, qh, R, grid[sel])
+    for a, b, c in zip(got, want, fixed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("W", (1, 2, 4, 9))
+@pytest.mark.parametrize("bits", (1, 2, 4, 8))
+@pytest.mark.parametrize("padded", (True, False))
+def test_dequant_acc_kernel_matches_plain_version(cuda, bits, W, padded):
+    n = 3 * 4096 + 1239
+    nbytes = -(-n // 4096) * 4096 * bits // 8 if padded else -(-n * bits // 8)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(bits * 100 + W)
+    packed = torch.randint(0, 256, (W, nbytes), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    R = torch.rand(W, generator=gen, device=cuda)
+    R[W // 2] = 0.0
+    keep = (torch.arange(W, device=cuda) % 3 != 1).float()
+    acc = torch.randn(n, generator=gen, device=cuda)
+    for a in (None, acc):
+        before = ops.dequant_acc.launches
+        got = ops.dequant_acc(packed, R, keep, bits, n, a)
+        torch.cuda.synchronize()
+        assert ops.dequant_acc.launches == before + 1
+        assert torch.equal(got, ref.dequant_acc_ref(packed, R, keep, bits, n,
+                                                    a))
+
+
+def test_dequant_acc_kernel_keeps_both_orders(cuda):
+    """The kernel adds acc first, then worker by worker; the reference
+    backend's order (acc last) gives other bits on planted values."""
+    from repro_torch.core.wire import FusedWire, ReferenceWire
+    packed = torch.zeros((4, 4096), dtype=torch.uint8, device=cuda)
+    R = torch.full((4,), 2.0 ** -24, device=cuda)
+    keep = torch.ones(4, device=cuda)
+    acc = torch.full((6,), -1.0, device=cuda)
+    fused = FusedWire().dequant_acc(packed, R, keep, 8, 6, acc)
+    assert bool((fused == -1.0).all())
+    assert torch.equal(fused, ref.dequant_acc_ref(packed, R, keep, 8, 6, acc))
+    plain = ReferenceWire().dequant_acc(packed, R, keep, 8, 6, acc)
+    assert bool((plain == -1.0 - 2.0 ** -22).all())
+    no_acc = FusedWire().dequant_acc(packed, R, keep, 8, 6)
+    assert torch.equal(no_acc, ReferenceWire().dequant_acc(packed, R, keep,
+                                                           8, 6))
+
+
+def test_dequant_acc_refuses_more_workers_than_the_kernel_takes(cuda):
+    from repro_torch.kernels import quant_pack
+    W = quant_pack.library().max_workers + 1
+    packed = torch.zeros((W, 8), dtype=torch.uint8, device=cuda)
+    ones = torch.ones(W, device=cuda)
+    with pytest.raises(ValueError, match="workers"):
+        ops.dequant_acc(packed, ones, ones, 8, 8)
+
+
+def test_sharded_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One NCCL worker: three packed-wire steps of smoke stablelm on the
+    card and on the CPU (through a gloo group of one) give the same
+    uploads and bits, and losses to rtol 1e-4."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.launch.mesh import init_workers
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    strat = StrategyConfig(kind="laq", bits=4, per_leaf_radius=True,
+                           wire_backend="fused")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    runs = {}
+    for backend, dev in (("gloo", "cpu"), ("nccl", "cuda")):
+        workers = init_workers(backend, 1, 0, dist.FileStore(
+            str(tmp_path / backend), 1))
+        try:
+            batch = {"tokens": tok[:, :-1].to(dev), "targets":
+                     tok[:, 1:].to(dev)}
+            params = tree_map(lambda t: t.to(dev),
+                              init_params(0, cfg, device="cpu"))
+            state = init_train_state(params, workers, strat, sgd())
+            step = make_train_step(cfg, workers, strat, sgd(), lr=1e-2,
+                                   wire="packed", microbatch=2)
+            rec = []
+            for _ in range(3):
+                state, m = step(state, batch)
+                rec.append((m.uploads, float(m.bits), float(m.loss)))
+            runs[dev] = rec
+        finally:
+            dist.destroy_process_group()
+    for (u1, b1, l1), (u2, b2, l2) in zip(runs["cuda"], runs["cpu"]):
+        assert (u1, b1) == (u2, b2)
+        assert abs(l1 - l2) <= 1e-4 * abs(l2)

@@ -13,8 +13,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.model import init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "benchmarks_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -58,3 +59,45 @@ def test_kernel_wrappers_refuse_bad_operands():
     meta = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.absmax(meta, meta)
+
+
+def test_port_files_cover_the_new_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/optim/optimizers.py",
+                 "benchmarks_torch/bits_sweep.py"):
+        assert want in names, want
+
+
+def test_benchmark_and_chip_script_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib.util
+
+    from benchmarks_torch import bits_sweep
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bits_sweep.run()
+    assert bits_sweep.main() == 1
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.main() == 1
+
+
+def test_sharded_step_runs_where_its_parameters_are():
+    """The sharded step has no device of its own: its state lives where
+    the caller's parameters do, and init_params refuses a missing card."""
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.launch.mesh import WorkerGroup
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.optim.optimizers import sgd
+    cfg = smoke_config(get_config("stablelm-1.6b"))
+    state = init_train_state(init_params(0, cfg, device="cpu"),
+                             WorkerGroup(None, 1, 0, "gloo"),
+                             StrategyConfig(kind="laq", bits=4), sgd())
+    assert state.comm.qhat[0]["embed"].device.type == "cpu"
+    assert WorkerGroup(None, 4, 0, "gloo").transport("cuda") == (
+        "gloo, staged through pinned host memory")
+    assert WorkerGroup(None, 1, 0, "nccl").transport("cuda") == "nccl"

@@ -88,10 +88,8 @@ def test_fused_roundtrip_frees_unrequested_payloads(monkeypatch):
 
 
 def test_unported_methods_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Receive side"):
-        twire.FusedWire().dequant_acc(None, None, None, 8, 0)
-    with pytest.raises(NotImplementedError, match="Sharded step"):
-        twire.ReferenceWire().leaf_quantize_adaptive(None, None, None,
-                                                     (2, 4), None, None)
+    _, _, tg, tqh = _trees(9)
+    with pytest.raises(NotImplementedError, match="RNG parity"):
+        twire.sparse_roundtrip("fused", tg, tqh, 4, 8, "randk")
     with pytest.raises(ValueError):
         twire.get_backend("nope")
