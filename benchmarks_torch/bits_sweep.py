@@ -11,8 +11,9 @@ is the mean of 20 launches timed with CUDA events after 3 warm-up
 launches, and records the device it ran on.  Each kernel's output is held
 bitwise against its plain version first.  The LAQ half of the reference
 (the bits sweep on the logistic-regression workers) needs the reference's
-``classification_dataset``, drawn with ``jax.random``: it waits for the
-port's RNG parity (ROADMAP queue 1).
+``classification_dataset``, drawn with ``jax.random.normal`` and
+``permutation``, which ``repro_torch.random`` does not draw yet: it waits
+for the torch Table 2 benchmark (ROADMAP queue 1).
 
 Without a CUDA device this exits non-zero: no number here is taken on the
 CPU.

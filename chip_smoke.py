@@ -31,6 +31,10 @@ CPU or to a plain version while a CUDA tensor is at hand):
    same runs on the CPU (plain versions): identical uploads, bits and
    widths, loss to rtol 1e-4.  The tighter A-LAQ run must launch
    quantize_pack_adaptive at widths 2 and 4 from inside the engine.
+   ``repro_torch.random`` (the ``jax.random`` draws) must give the same
+   bits on the card as on the CPU, in both threefry layouts, and
+   ``run_stochastic`` (slaq, slaq_ps, qsgd, ssgd; 30 rounds of a small
+   Table 3 regression) the same uploads, bits and mean bits.
 4. The paths, each through ``RoundEngine.round`` with the kernels' launch
    counters zeroed just before it and read just after, on stablelm-1.6b at
    its published widths (d_model 2048, vocab 100352), float32 params and
@@ -70,6 +74,15 @@ CPU or to a plain version while a CUDA tensor is at hand):
    between the two wires, and the uploads and bits equal step by step.
 7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
    {4, 8}, its rows printed.
+8. Stochastic rounds at stablelm-1.6b's published widths, as phase 4 but
+   with W=4 workers of 4 x 512 tokens and ``AccumulatingSource(batch=2,
+   accum=2, seed=0)``, 3 rounds each: SLAQ (rule 7a, b=8) at 24 layers,
+   lm_frontier's stochastic ``slaq`` (rule lasg_wk, b=4) at 8 layers (the
+   W gradient EMAs), and the same-sample rule lasg_wk2 with SVRG anchors
+   refreshed every 2 rounds (b=8) at 6 layers (the W stale iterates and W
+   anchor gradients).  absmax and quantize_pack_fused launch rounds x W x
+   12 times on each; the round-1 sampled indices are printed.  Losses
+   finite, round 1 uploads from every worker, peak below 76 GB.
 
 Phase 2 also holds kernels 5 and 6 (``quantize_codes_fused``,
 ``quantize_codes_adaptive``) and kernel 3 (``quantize_pack``) at the 12
@@ -106,6 +119,8 @@ TIMED_LAUNCHES = 20
 SHARDED_STEPS, SHARDED_ROWS, SHARDED_MICROBATCH, SHARDED_LR = 3, 2, 2, 1e-2
 EXCHANGE_W, EXCHANGE_LAYERS, EXCHANGE_ROWS = 4, 2, 1
 RANK_TIMEOUT = 600            # seconds for the phase-6 ranks
+STOCH_LAYERS = {"slaq": 24, "slaq_wk": 8, "slaq_wk2_svrg": 6}  # phase 8
+STOCH_N_LOCAL, STOCH_BATCH, STOCH_ROUNDS = 4, 2, 3
 
 
 def log(msg):
@@ -379,6 +394,91 @@ def strategies():
         "ef_topk": StrategyConfig(bits=4, **base, compressor="topk",
                                   compressor_k=0.05, error_feedback=True),
     }
+
+
+def stochastic_strategies():
+    """Phase 8's stochastic methods on the fused wire, with lm_frontier's
+    criterion and 1/t stepsize: SLAQ under rule 7a at b=8, lm_frontier's
+    own stochastic "slaq" (benchmarks/lm_frontier.py:99-104: rule lasg_wk,
+    b=4), and the same-sample rule with SVRG anchors refreshed every 2
+    rounds at b=8."""
+    from repro_torch.core.adaptive import EtaSchedule
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.strategy import StrategyConfig
+    base = dict(kind="laq", per_leaf_radius=True, wire_backend="fused",
+                criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
+                eta_schedule=EtaSchedule("inv_t", t0=30.0))
+    return {
+        "slaq": StrategyConfig(bits=8, **base),
+        "slaq_wk": StrategyConfig(bits=4, lazy_rule="lasg_wk", **base),
+        "slaq_wk2_svrg": StrategyConfig(bits=8, lazy_rule="lasg_wk2",
+                                        grad_mode="svrg", svrg_period=2,
+                                        **base),
+    }
+
+
+def random_card_check(torch):
+    """Phase 3: ``repro_torch.random`` on the card bitwise equal to the CPU,
+    in both threefry layouts, from keys to every draw the port makes."""
+    from repro_torch import random
+    n = 0
+    for flag in (True, False):
+        with random.threefry_partitionable(flag):
+            for seed in (0, 7, 2**32 - 1):
+                draws = {}
+                for dev in ("cpu", "cuda"):
+                    k = random.fold_in(random.PRNGKey(seed, device=dev), 3)
+                    draws[dev] = (
+                        random.split(k, 5), random.random_bits(k, ((1 << 20) + 3,)),
+                        random.uniform(k, (1000, 7)),
+                        random.randint(k, (4097,), 0, 12),
+                        random.randint(k, (33,), -5, 2**31 - 1),
+                        random.bernoulli(k, 0.5, (512, 3)))
+                for a, b in zip(draws["cuda"], draws["cpu"]):
+                    if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                        raise AssertionError(
+                            f"random draw differs card vs CPU (partitionable="
+                            f"{flag}, seed {seed}, shape {tuple(b.shape)})")
+                    n += b.numel()
+    log(f"  ok random.py: {n} drawn values bitwise equal on card and CPU "
+        f"in both layouts")
+
+
+def stochastic_small_check(torch):
+    """Phase 3: ``run_stochastic`` on a small Table 3 regression (6 workers
+    of 12 examples, p=8, batch 4, b=4, 30 rounds) on the card vs the CPU:
+    identical uploads, bits and mean bits, loss to rtol 1e-4."""
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.simulated import run_stochastic
+    from repro_torch.core.strategy import StrategyConfig
+    gen = torch.Generator().manual_seed(0)
+    X = torch.randn(6, 12, 8, generator=gen)
+    Y = X @ torch.linspace(-1.0, 1.0, 8) + 0.3 * torch.randn(6, 12,
+                                                             generator=gen)
+
+    def loss(params, data):
+        x, y = data
+        return 0.5 * torch.sum(torch.square(x @ params["w"] - y)) / 72
+
+    cfg = StrategyConfig(kind="laq", bits=4, wire_backend="fused",
+                         criterion=CriterionConfig(D=10, xi=0.08, t_bar=20))
+    for kind in ("slaq", "slaq_ps", "qsgd", "ssgd"):
+        runs = {dev: run_stochastic(loss, {"w": torch.zeros(8)}, (X, Y), kind,
+                                    steps=30, alpha=0.3, batch=4, bits=4,
+                                    seed=2, laq_cfg=cfg, device=dev)
+                for dev in ("cpu", "cuda")}
+        a, b = runs["cuda"], runs["cpu"]
+        for f in ("cum_uploads", "cum_bits", "mean_bits"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"run_stochastic {kind}: {f} differs "
+                                     f"card vs CPU")
+        rel = ((a.loss - b.loss).abs() / b.loss.abs()).max().item()
+        if not rel <= 1e-4:
+            raise AssertionError(f"run_stochastic {kind}: loss differs card "
+                                 f"vs CPU by {rel:.3e}")
+        log(f"  ok run_stochastic {kind}, 30 rounds: uploads "
+            f"{int(a.cum_uploads[-1])} bits {a.cum_bits[-1].item():.0f} equal "
+            f"on card and CPU; loss max rel diff {rel:.3e}")
 
 
 def small_slice_check(torch, ops):
@@ -811,23 +911,35 @@ KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
            "quantize_codes_adaptive", "dequant_acc")
 
 
-def run_path(torch, ops, method, cfg, rounds):
+def run_path(torch, ops, method, cfg, rounds, *, stochastic=False):
     """One path at full width: fresh params and engine, the launch counters
     zeroed just before the rounds and read just after.  Returns the
-    counters, the per-round records, round ms and peak bytes."""
+    counters, the per-round records, round ms and peak bytes.  A
+    stochastic path (phase 8) draws ``STOCH_BATCH`` of its workers'
+    ``STOCH_N_LOCAL`` sequences each round."""
     from repro_torch.core.engine import AccumulatingSource, RoundEngine
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.models.config import n_params
     from repro_torch.models.model import init_params, lm_worker_loss
 
-    log(f"phase 4: {method}, stablelm-1.6b at {cfg.n_layers} layers "
-        f"(P={n_params(cfg)}), W={W}, {N_LOCAL}x{SEQ} tokens per worker, "
-        f"accum={ACCUM}, alpha={ALPHA}, fused wire")
-    corpus = lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda")
-    engine = RoundEngine(AccumulatingSource(lm_worker_loss(cfg, W), corpus,
-                                            deterministic=True, accum=ACCUM,
-                                            scale=1.0),
-                         strategies()[method], alpha=ALPHA)
+    n_local = STOCH_N_LOCAL if stochastic else N_LOCAL
+    log(f"phase {8 if stochastic else 4}: {method}, stablelm-1.6b at "
+        f"{cfg.n_layers} layers (P={n_params(cfg)}), W={W}, {n_local}x{SEQ} "
+        f"tokens per worker, accum={ACCUM}, alpha={ALPHA}, fused wire")
+    corpus = lm_worker_corpus(0, W, n_local, SEQ, cfg.vocab, device="cuda")
+    if stochastic:
+        source = AccumulatingSource(lm_worker_loss(cfg, W), corpus,
+                                    batch=STOCH_BATCH, seed=0, accum=ACCUM,
+                                    scale=1.0)
+        strategy = stochastic_strategies()[method]
+        log(f"  round-1 sampled indices per worker: "
+            f"{source.indices(0).tolist()}")
+    else:
+        source = AccumulatingSource(lm_worker_loss(cfg, W), corpus,
+                                    deterministic=True, accum=ACCUM,
+                                    scale=1.0)
+        strategy = strategies()[method]
+    engine = RoundEngine(source, strategy, alpha=ALPHA)
     carry = engine.init_carry(init_params(0, cfg, device="cuda"),
                               device="cuda")
     torch.cuda.synchronize()
@@ -852,7 +964,7 @@ def run_path(torch, ops, method, cfg, rounds):
     launches = {name: getattr(ops, name).launches for name in KERNELS}
     launches["adaptive_by_width"] = dict(
         ops.quantize_pack_adaptive.launches_by_width)
-    del carry, engine, corpus
+    del carry, engine, corpus, source
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -940,6 +1052,8 @@ def main() -> int:
 
     log("phase 3: the slice on a small input, card vs CPU")
     small_slice_check(torch, ops)
+    random_card_check(torch)
+    stochastic_small_check(torch)
 
     paths = {
         "laq": (cfg, {"absmax": 1, "quantize_pack_fused": 1}),
@@ -1009,6 +1123,23 @@ def main() -> int:
     log("phase 7: benchmarks_torch/bits_sweep.py")
     sweep_launches, _ = run_bits_sweep(torch, ops)
     by_path["bits_sweep"] = {k: sweep_launches.get(k, 0) for k in KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for method, layers in STOCH_LAYERS.items():
+        pcfg = dataclasses.replace(cfg, n_layers=layers)
+        launches, recs, round_ms, peaks = run_path(
+            torch, ops, method, pcfg, STOCH_ROUNDS, stochastic=True)
+        per_round = W * len(shapes)
+        expect_launches(method, launches, {
+            "absmax": STOCH_ROUNDS * per_round,
+            "quantize_pack_fused": STOCH_ROUNDS * per_round})
+        by_path[method] = launches
+        log(f"  ok {method}: launches {launches}, losses finite, round-1 "
+            f"uploads {W}, uploads by round "
+            f"{[b[2] - a[2] for a, b in zip([(0, 0, 0)] + recs, recs)]}; "
+            f"round ms {[round(x, 1) for x in round_ms]}, max peak "
+            f"{max(peaks) / 1e9:.2f} GB")
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {

@@ -1,13 +1,13 @@
-"""Sparsifying compressor and error-feedback memory (EF-LAQ), port of the
-parts of ``repro/core/compressors.py`` that the engine's sparse branch
-runs: support selection, the sign-magnitude grid on the survivors, and the
-per-worker residual.
+"""Sparsifying compressor, error-feedback memory (EF-LAQ) and the dense
+baselines of paper Table 3, port of the parts of
+``repro/core/compressors.py`` that the engine runs: support selection
+(top-k, and rand-k from :mod:`repro_torch.random`), the sign-magnitude grid
+on the survivors, the per-worker residual, and ``qsgd_compress`` /
+``ssgd_compress``.
 
 The pipeline stage classes (``TopKSparsifier``, ``UniformQuantizer``,
-``CodePacker``, ``CompressorPipeline``) and the unbiased dense baselines
-(``qsgd_compress``, ``ssgd_compress``) are not ported: no engine path uses
-them.  ``randk`` needs ``jax.random``'s bits and raises until the port has
-them (ROADMAP.md queue 1: RNG parity).
+``CodePacker``, ``CompressorPipeline``) are not ported: no engine path
+uses them.
 
 Bit-identity with the reference under jit:
 
@@ -17,13 +17,17 @@ Bit-identity with the reference under jit:
 * XLA rewrites ``(hi - lo) / L`` (a constant divisor) as ``(hi - lo) *
   f32(1 / L)`` and contracts ``lo + mag * step`` into one FMA; the grid
   here does the same (:func:`repro_torch.core.quantize.fma_f32`).
+* rand-k keeps the k largest of p uniform scores drawn with the worker's
+  key, ties to the lowest index, as top-k does.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import random
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .quantize import fma_f32
 
@@ -60,6 +64,14 @@ def static_k(k_frac: float, p: int) -> int:
     return min(p, max(0, int(round(k_frac * p))))
 
 
+def compressor_keys(seed: int, step: int, n_workers: int, *,
+                    device="cuda") -> torch.Tensor:
+    """``[W, 2]`` rand-k selection keys of round ``step``:
+    ``fold_in(fold_in(PRNGKey(seed), step), m)`` for worker m."""
+    ks = random.fold_in(random.PRNGKey(seed, device=device), step)
+    return torch.stack([random.fold_in(ks, m) for m in range(n_workers)])
+
+
 class SparseSelection(NamedTuple):
     """A sparsifier's output: ``idx`` ascending (int64, torch's index
     type; the reference's is int32), ``vals`` the survivors in that
@@ -84,24 +96,25 @@ def _topk_support(flat: torch.Tensor, k: int) -> torch.Tensor:
     return idx
 
 
-def select_support(mode: str, flat: torch.Tensor, k: int):
+def select_support(mode: str, flat: torch.Tensor, k: int, key=None):
     """Support selection of the sparse wire: ``topk`` keeps the k
-    largest-|.| coordinates, with ``jax.lax.top_k``'s tie rule; indices
+    largest-|.| coordinates, ``randk`` the k largest of p uniform scores
+    drawn with ``key``, both with ``jax.lax.top_k``'s tie rule; indices
     ascending."""
     p = flat.shape[0]
     if mode not in COMPRESSORS[1:]:
         raise ValueError(f"unknown sparsifier {mode!r}; have {COMPRESSORS[1:]}")
-    if mode == "randk":
-        raise NotImplementedError(
-            "randk draws its support from jax.random and needs RNG parity "
-            "(ROADMAP.md queue 1: RNG parity)")
+    if mode == "randk" and key is None:
+        raise ValueError("randk needs a selection key")
     if k <= 0:
         return SparseSelection(
             torch.zeros(0, dtype=torch.int64, device=flat.device),
             torch.zeros(0, dtype=F32, device=flat.device))
     if k >= p:
         return SparseSelection(torch.arange(p, device=flat.device), flat)
-    idx = _topk_support(flat, k)
+    scores = flat if mode == "topk" else random.uniform(key, (p,))
+    idx = _topk_support(scores, k)
+    del scores
     return SparseSelection(idx, flat[idx])
 
 
@@ -184,3 +197,55 @@ def init_error_state(error_feedback: bool, grad_template,
     return ErrorState([tree_map(lambda l: torch.zeros(l.shape, dtype=F32,
                                                       device=l.device),
                                 grad_template) for _ in range(n_workers)])
+
+
+# ---------------------------------------------------------------------------
+# Unbiased dense baselines (paper Table 3).
+# ---------------------------------------------------------------------------
+
+def qsgd_compress(key, grad, bits: int):
+    """QSGD (Alistarh et al., 2017): random b-bit quantization of ``|v| /
+    ||v||`` onto ``s = 2^b - 1`` levels, unbiased.  Returns
+    ``(compressed_grad, wire_bits)``; the wire carries the norm and b bits
+    plus a sign per coordinate.  ``* norm / s`` is ``* norm * f32(1 / s)``
+    (XLA rewrites a division by a constant so under jit); the norm is a
+    float32 sum of squares in torch's order."""
+    v, meta = _flat(grad)
+    s = 2.0 ** bits - 1.0
+    norm = torch.linalg.vector_norm(v)
+    if bool(norm > 0):
+        scaled = v.abs() / norm * s
+    else:
+        scaled = torch.zeros_like(v)
+    lo = torch.floor(scaled)
+    prob = scaled - lo
+    del scaled
+    level = lo + (random.uniform(key, v.shape) < prob).to(F32)
+    del lo, prob
+    out = torch.sign(v) * level * norm * float(torch.tensor(1.0 / s,
+                                                            dtype=F32))
+    wire_bits = 32.0 + (bits + 1) * v.numel()
+    return _unflat(out, meta), torch.tensor(wire_bits, dtype=F32)
+
+
+def ssgd_compress(key, grad, density: float):
+    """SSGD (Wangni et al., 2018): keep coordinate i with probability
+    ``min(1, k |v_i| / sum |v|)``, k = density * p, and rescale the kept
+    ones by 1/prob (unbiased).  The wire carries a 32-bit value and a
+    ``ceil(log2 p)``-bit index per survivor."""
+    v, meta = _flat(grad)
+    p = v.numel()
+    absv = v.abs()
+    denom = absv.sum()
+    k = float(torch.tensor(density * p, dtype=F32))
+    if bool(denom > 0):
+        probs = torch.clamp_max(k * absv / denom, 1.0)
+    else:
+        probs = torch.zeros_like(v)
+    del absv
+    keep = random.uniform(key, v.shape) < probs
+    out = torch.where(keep, v / torch.clamp_min(probs, 1e-12),
+                      torch.zeros_like(v))
+    nnz = keep.to(F32).sum()
+    idx_bits = max(1, int(math.ceil(math.log2(p))))
+    return _unflat(out, meta), nnz.cpu() * (32.0 + idx_bits)

@@ -1,22 +1,32 @@
-"""The LAQ communication round, port of ``repro/core/engine.py``
-(deterministic slice).
+"""The LAQ communication round, port of ``repro/core/engine.py``.
 
-``RoundEngine.round`` is one round: per-worker gradients -> quantize the
-innovation -> skip rule 7a/7b -> server recursion -> update.  The
-reference runs it as a ``lax.scan`` body over a vmapped worker axis; here
-``run_from`` is a Python loop and the workers run one at a time inside
-:func:`repro_torch.core.strategy.aggregate`, so one round of a model with
-P parameters and W workers holds about (W + 7) float32 copies of P at its
-peak: theta, W qhat, the server aggregate, the running sum of the
-gradients (for ``grad_norm_sq``), the running sum of the committed deltas,
-and the worker in hand's gradient, delta and q_new.  Error feedback adds
-the W residuals and, for the worker in hand, the corrected gradient and
-the sparse wire's flat copies (about 2W + 10 copies in all).
+``RoundEngine.round`` is one round: per-worker gradients -> SVRG
+correction -> WK2 stale side -> quantize the innovation -> skip rule ->
+server recursion -> update, or, for the dense baselines of paper Table 3
+(``baseline="sgd" | "qsgd" | "ssgd"``), per-worker compression and a plain
+sum.  The reference runs it as a ``lax.scan`` body over a vmapped worker
+axis; here ``run_from`` is a Python loop and the workers run one at a time
+inside :func:`repro_torch.core.strategy.aggregate`, so one round of a
+model with P parameters and W workers holds about (W + 7) float32 copies
+of P at its peak: theta, W qhat, the server aggregate, the running sum of
+the gradients (deterministic sources, for ``grad_norm_sq``), the running
+sum of the committed deltas, and the worker in hand's gradient, delta and
+q_new.  Error feedback adds the W residuals and, for the worker in hand,
+the corrected gradient and the sparse wire's flat copies (about 2W + 10
+copies in all).  A stochastic source has no gradient sum: its
+``grad_norm_sq`` is a full-data gradient taken after the workers'
+gradients are freed.  ``lasg_wk`` adds W gradient EMAs; ``lasg_wk2`` and
+``lasg_ps`` up to W stale iterates (``theta_last`` references the iterate
+of each worker's last upload); SVRG W full local gradients ``mu`` and the
+anchor iterate, which the W workers share; the worker in hand then also
+holds its correction and, under ``lasg_wk2``, its stale gradient.
 
-Gradient sources: :class:`FullBatchSource` (paper Table 2) and
-:class:`AccumulatingSource` in ``deterministic=True`` mode (the LM worker,
-full local corpus through the gradient-accumulation fold).  The stochastic
-sources wait for RNG parity with ``jax.random`` (ROADMAP queue 1).
+Gradient sources: :class:`FullBatchSource` (paper Table 2),
+:class:`MinibatchSource` (paper Table 3) and :class:`AccumulatingSource`
+(the LM worker, stochastic or ``deterministic=True``).  Their minibatches
+are drawn with :mod:`repro_torch.random`, the ``jax.random`` draws bit for
+bit, from ``fold_in`` keys of ``(seed, stream, round, worker)``: stream 0
+draws the batch indices, stream 1 the baselines' compressor randomness.
 """
 from __future__ import annotations
 
@@ -24,12 +34,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import random
 from ..device import resolve_device
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .adaptive import eta_at
-from .quantize import tree_sq_norm
-from .strategy import (StrategyConfig, aggregate, check_supported,
-                       finalize_step, init_comm_state)
+from .compressors import qsgd_compress, ssgd_compress
+from .quantize import dense_bits, fma_f32, tree_sq_norm
+from .strategy import (CommState, StrategyConfig, SvrgState, aggregate,
+                       check_supported, finalize_step, init_comm_state)
 
 F32 = torch.float32
 
@@ -120,67 +132,237 @@ def accumulate_loss_grads(loss_fn, params, microbatches):
     return loss_acc, g_acc
 
 
-class AccumulatingSource:
-    """Gradient-accumulating source, the LM-scale worker.  Only the
-    ``deterministic=True`` mode is ported: every round streams each
-    worker's whole local corpus through :func:`accumulate_loss_grads` in
-    ``accum`` microbatches (full-batch LAQ at the accumulation memory
-    profile).  ``scale`` multiplies the folded gradient (LM losses carry
-    their ``1/W`` already: pass ``scale=1.0``)."""
+class _StochasticStream:
+    """The reference's functional key stream: every key is
+    ``fold_in(fold_in(fold_in(PRNGKey(seed), stream), step), worker)``, so
+    the batch indices do not depend on the method, and each worker's
+    stream is its own."""
 
-    def __init__(self, loss_fn, worker_data, *, accum: int = 1,
-                 deterministic: bool = False, scale: Optional[float] = None):
-        if not deterministic:
-            raise NotImplementedError(
-                "stochastic AccumulatingSource needs jax.random parity "
-                "(ROADMAP.md queue 1: RNG parity, Stochastic slice)")
+    def _init_stream(self, seed: int, device):
+        self._key0 = random.PRNGKey(seed, device=device)
+
+    def stream_keys(self, stream: int, step: int) -> torch.Tensor:
+        """``[W, 2]`` keys of ``stream`` at round ``step``."""
+        ks = random.fold_in(random.fold_in(self._key0, stream), step)
+        return torch.stack([random.fold_in(ks, m)
+                            for m in range(self.n_workers)])
+
+    def indices(self, step: int) -> torch.Tensor:
+        """``[W, batch]`` int64 local indices this round's minibatches take:
+        ``randint(key_m, (batch,), 0, n_local)`` per worker."""
+        keys = self.stream_keys(0, step)
+        return torch.stack([random.randint(keys[m], (self.batch,), 0,
+                                           self.n_local)
+                            for m in range(self.n_workers)]).long()
+
+    def _gather(self, idx):
+        """The rows ``idx`` ([W, ...] local indices) of each worker's data."""
+        rows = torch.arange(self.n_workers, device=idx.device).reshape(
+            (-1,) + (1,) * (idx.dim() - 1))
+        return tree_map(lambda x: x[rows, idx], self.worker_data)
+
+
+class MinibatchSource(_StochasticStream):
+    """Minibatch gradient source (paper Table 3 methods): each round worker
+    m draws ``batch`` of its ``n_local`` examples with replacement, and its
+    gradient is scaled by ``n_local / batch`` so that ``sum_m E[g_m]`` is
+    the gradient of the global loss ``sum_m f_m``."""
+    stochastic = True
+
+    def __init__(self, loss_fn, worker_data, *, batch: int, seed: int):
         self.loss_fn = loss_fn
         self.worker_data = worker_data
         leaves = tree_leaves(worker_data)
         self.n_workers = leaves[0].shape[0]
         self.n_local = leaves[0].shape[1]
-        if self.n_local % accum:
-            raise ValueError(f"batch {self.n_local} % accum {accum}")
-        self.accum = accum
-        self.micro = self.n_local // accum
-        self.stochastic = False
-        self.scale = 1.0 if scale is None else scale
+        self.batch = batch
+        self.scale = self.n_local / batch
+        self._init_stream(seed, leaves[0].device)
 
     def sample(self, step):
-        """[W, accum, micro, ...] microbatches of the whole corpus."""
-        return tree_map(lambda x: x.reshape((x.shape[0], self.accum, self.micro)
-                                            + tuple(x.shape[2:])),
-                        self.worker_data)
+        return self._gather(self.indices(step))
 
-    def grad_at(self, params, batches, m: int):
-        """Worker m's accumulated gradient at ``params``, float32 and
-        ``scale``-multiplied (a scale of 1.0 is the identity and is
-        skipped)."""
+    def grad_at(self, params, batches, m: int, *, scaled: bool = True):
+        """Worker m's minibatch gradient at ``params`` (the current iterate,
+        its stale iterate or its SVRG anchor), float32, times ``scale``
+        unless ``scaled=False``."""
+        g = value_and_grad(self.loss_fn, params, _worker_slice(batches, m))[1]
+        if not scaled:
+            return tree_map(lambda x: x.to(F32), g)
+        return tree_map(lambda x: x.to(F32) * self.scale, g)
+
+    def full_local_grads(self, params, m: int):
+        """Worker m's exact full local gradient (the SVRG anchor's mu)."""
+        g = value_and_grad(self.loss_fn, params,
+                           _worker_slice(self.worker_data, m))[1]
+        return tree_map(lambda x: x.to(F32), g)
+
+    global_loss = FullBatchSource.global_loss
+
+    def grad_norm_sq(self, params) -> torch.Tensor:
+        """``||grad sum_m f_m||^2``: the true gradient, one full-data
+        backprop (the round's minibatch gradients are noisy)."""
+        def total(p, _):
+            return torch.stack([self.loss_fn(p, _worker_slice(self.worker_data, m))
+                                for m in range(self.n_workers)]).sum()
+
+        return tree_sq_norm(value_and_grad(total, params, None)[1]).cpu()
+
+
+class AccumulatingSource(_StochasticStream):
+    """Gradient-accumulating source, the LM-scale worker.
+
+    Stochastic mode: each round worker m draws ``batch`` local examples
+    from the same key stream as :class:`MinibatchSource` (identical
+    indices for identical ``(seed, batch)``) and folds loss and gradient
+    over ``accum`` sequential microbatches of ``batch / accum`` examples
+    (:func:`accumulate_loss_grads`).  ``deterministic=True`` streams the whole local corpus
+    through the fold every round (full-batch LAQ at the accumulation
+    memory profile).  ``scale`` multiplies the folded gradient; the
+    default ``n_local / batch`` matches ``MinibatchSource``, and LM losses
+    that carry their ``1/W`` already take ``scale=1.0``."""
+
+    def __init__(self, loss_fn, worker_data, *, batch: Optional[int] = None,
+                 seed: int = 0, accum: int = 1, deterministic: bool = False,
+                 scale: Optional[float] = None):
+        self.loss_fn = loss_fn
+        self.worker_data = worker_data
+        leaves = tree_leaves(worker_data)
+        self.n_workers = leaves[0].shape[0]
+        self.n_local = leaves[0].shape[1]
+        if deterministic:
+            batch = self.n_local
+        if batch is None:
+            raise ValueError("batch is required for the stochastic mode")
+        if batch % accum:
+            raise ValueError(f"batch {batch} % accum {accum}")
+        self.batch = batch
+        self.accum = accum
+        self.micro = batch // accum
+        self.deterministic = deterministic
+        self.stochastic = not deterministic
+        self.scale = (self.n_local / batch) if scale is None else scale
+        self._init_stream(seed, leaves[0].device)
+
+    def sample(self, step):
+        """[W, accum, micro, ...] microbatches: this round's draw, the
+        ``(batch,)`` indices reshaped, or the whole corpus in order."""
+        if self.deterministic:
+            return tree_map(lambda x: x.reshape(
+                (x.shape[0], self.accum, self.micro) + tuple(x.shape[2:])),
+                self.worker_data)
+        idx = self.indices(step)
+        return self._gather(idx.reshape(self.n_workers, self.accum,
+                                        self.micro))
+
+    def grad_at(self, params, batches, m: int, *, scaled: bool = True):
+        """Worker m's accumulated gradient at ``params``, float32 and, unless
+        ``scaled=False``, ``scale``-multiplied (a scale of 1.0 is the
+        identity and is skipped).  One microbatch is evaluated directly,
+        as the reference does."""
         mbs = _worker_slice(batches, m)
         if self.accum == 1:
             g = value_and_grad(self.loss_fn, params, _worker_slice(mbs, 0))[1]
             g = tree_map(lambda x: x.to(F32), g)
         else:
             _, g = accumulate_loss_grads(self.loss_fn, params, mbs)
-        if self.scale != 1.0:
+        if scaled and self.scale != 1.0:
             g = tree_map(lambda x: x * self.scale, g)
         return g
 
+    def _chunk_full(self, data_m):
+        """Worker m's whole corpus in chunks of ``micro`` examples (one
+        chunk when ``micro`` does not divide it)."""
+        c = self.micro if self.n_local % self.micro == 0 else self.n_local
+        return tree_map(lambda x: x.reshape((self.n_local // c, c)
+                                            + tuple(x.shape[1:])), data_m)
+
+    def full_local_grads(self, params, m: int):
+        """Worker m's exact full local gradient (the SVRG anchor's mu),
+        accumulated over the corpus chunks, unscaled."""
+        return accumulate_loss_grads(
+            self.loss_fn, params,
+            self._chunk_full(_worker_slice(self.worker_data, m)))[1]
+
     @torch.no_grad()
     def global_loss(self, params):
-        """Sum over workers of the mean microbatch loss, in the
-        microbatches of :meth:`sample`."""
-        batches = self.sample(None)
-
+        """Sum over workers of the mean chunk loss."""
         def worker_loss(m):
-            mbs = _worker_slice(batches, m)
+            chunks = self._chunk_full(_worker_slice(self.worker_data, m))
+            n = tree_leaves(chunks)[0].shape[0]
             acc = torch.zeros((), dtype=F32)
-            for i in range(self.accum):
-                l = self.loss_fn(params, _worker_slice(mbs, i)).to(F32).cpu()
-                acc = acc + l / self.accum
+            for i in range(n):
+                l = self.loss_fn(params, _worker_slice(chunks, i))
+                acc = acc + l.to(F32).cpu() / n
             return acc
 
         return _sum_workers(worker_loss(m) for m in range(self.n_workers))
+
+    def grad_norm_sq(self, params) -> torch.Tensor:
+        """``||grad global_loss||^2``, one backprop per corpus chunk folded
+        into a float32 sum (the stochastic mode's record; a deterministic
+        round sums its workers' gradients instead)."""
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                             device=p.device), params)
+        for m in range(self.n_workers):
+            chunks = self._chunk_full(_worker_slice(self.worker_data, m))
+            n = tree_leaves(chunks)[0].shape[0]
+            for i in range(n):
+                g = value_and_grad(self.loss_fn, params,
+                                   _worker_slice(chunks, i))[1]
+                for a, x in zip(tree_leaves(acc), tree_leaves(g)):
+                    a.add_(x.to(F32) / n)
+                del g
+        return tree_sq_norm(acc).cpu()
+
+
+# ---------------------------------------------------------------------------
+# Shared round stages: the SVRG correction and the WK2 stale side, for the
+# worker in hand.
+# ---------------------------------------------------------------------------
+
+def _scale_add(scale: float, g, c):
+    """``scale * g + c`` leaf by leaf, one FMA as XLA contracts the source's
+    scaling into the next addition under jit (a plain add at scale 1)."""
+    if scale == 1.0:
+        for a, x in zip(tree_leaves(g), tree_leaves(c)):
+            a.add_(x)
+        return g
+    return tree_map(lambda a, x: fma_f32(scale, a, x), g, c)
+
+
+def apply_svrg_exact(sv: SvrgState, params, grad_raw, grad_at_raw,
+                     full_local_grads, m: int, refresh: bool, scale: float):
+    """Worker m's SVRG correction with an exact periodic anchor.  On a
+    refresh round the anchor snaps to ``params`` (one tree the W workers
+    share) and ``mu`` to the worker's full local gradient there.  Then
+    ``corr = mu - scale * g(theta_anchor; xi)`` and the corrected gradient
+    ``scale * g(theta; xi) + corr``, each one FMA.  ``grad_raw`` and
+    ``grad_at_raw(theta)`` are this round's minibatch gradients of worker
+    m before the source's ``scale``.  Returns ``(grad, corr)``; ``corr``
+    also corrects the WK2 stale side, so that anchor and mu cancel in the
+    same-sample difference."""
+    if refresh:
+        sv.theta_anchor[m] = tree_map(lambda p: p.to(F32), params)
+        sv.mu_anchor[m] = None
+        sv.mu_anchor[m] = tree_map(lambda g: g.to(F32),
+                                   full_local_grads(params, m))
+    g_anchor = grad_at_raw(sv.theta_anchor[m])
+    corr = tree_map(lambda mu, ga: fma_f32(-scale, ga, mu),
+                    sv.mu_anchor[m], g_anchor)
+    del g_anchor
+    return _scale_add(scale, grad_raw, corr), corr
+
+
+def stale_side_grads(grad_at_raw, theta_last_m, corr_m, scale: float):
+    """The WK2 second backprop: this round's minibatch at the worker's
+    stale iterate, scaled, with its SVRG correction (if any) added."""
+    gs = grad_at_raw(theta_last_m)
+    if corr_m is not None:
+        return _scale_add(scale, gs, corr_m)
+    if scale == 1.0:
+        return gs
+    return tree_map(lambda x: x * scale, gs)
 
 
 class FullParticipation:
@@ -195,20 +377,34 @@ class FullParticipation:
 
 
 class RoundEngine:
-    """One LAQ communication round, sources and state machine plugged in
-    (full participation: the other participation models are not ported)."""
+    """One communication round, sources and state machine plugged in (full
+    participation: the other participation models are not ported).
 
-    def __init__(self, source, cfg: StrategyConfig, *, alpha):
-        if source.stochastic:
-            raise NotImplementedError(
-                "stochastic sources need jax.random parity (ROADMAP.md "
-                "queue 1: RNG parity, Stochastic slice)")
+    ``baseline`` selects a dense baseline of paper Table 3 instead of the
+    LAQ state machine: ``"sgd"``, ``"qsgd"`` at ``bits`` or ``"ssgd"`` at
+    ``density`` (``CommState`` is then bookkeeping only; a stochastic
+    source is required, whose stream 1 keys the compressors, and the
+    criterion's ``theta_hist`` is not kept)."""
+
+    def __init__(self, source, cfg: StrategyConfig, *, alpha,
+                 baseline: Optional[str] = None, bits: int = 3,
+                 density: float = 0.1):
+        if baseline not in (None, "sgd", "qsgd", "ssgd"):
+            raise ValueError(f"unknown baseline {baseline!r}")
+        if baseline is not None and not source.stochastic:
+            raise ValueError("dense baselines need a stochastic source "
+                             "(their compressor keys come from its stream 1)")
         check_supported(cfg)
         self.source = source
         self.cfg = cfg
         self.alpha = alpha
+        self.baseline = baseline
+        self.bits = bits
+        self.density = density
         self.n_workers = source.n_workers
         self.participation = FullParticipation()
+        self.wk2 = (baseline is None and cfg.lazy
+                    and cfg.lazy_rule == "lasg_wk2")
 
     def init_carry(self, params0, *, device="cuda"):
         """``(params, CommState, participation state)`` on ``device``."""
@@ -220,7 +416,7 @@ class RoundEngine:
     def round(self, carry):
         """One communication round.  Returns the new carry and the record
         ``(loss, grad_norm_sq, total_uploads, total_bits, quant_err,
-        mean_bits)``.  The carry's ``qhat`` list and ``server_agg`` are
+        mean_bits)``.  The carry's per-worker lists and ``server_agg`` are
         updated in place (see :func:`aggregate`)."""
         cfg, source = self.cfg, self.source
         params, cst, pstate = carry
@@ -229,18 +425,49 @@ class RoundEngine:
                                                       params)
         loss = source.global_loss(params)
         batches = source.sample(cst.step)
-        gsum = tree_map(lambda l: torch.zeros(l.shape, dtype=F32,
-                                              device=l.device), params)
+        gsum = (None if source.stochastic else
+                tree_map(lambda l: torch.zeros(l.shape, dtype=F32,
+                                               device=l.device), params))
+        svrg = source.stochastic and cfg.variance_reduced
+        refresh = svrg and cst.step % cfg.svrg_period == 0
+        corr = {}
+
+        def grad_at_raw(m):
+            return lambda theta: source.grad_at(theta, batches, m,
+                                                scaled=False)
 
         def grad_of(m):
+            if svrg:
+                g, c = apply_svrg_exact(
+                    cst.svrg, params, grad_at_raw(m)(params), grad_at_raw(m),
+                    source.full_local_grads, m, refresh, source.scale)
+                if self.wk2:
+                    corr[m] = c
+                return g
             g = source.grad_at(params, batches, m)
-            for a, x in zip(tree_leaves(gsum), tree_leaves(g)):
-                a.add_(x)
+            if gsum is not None:
+                for a, x in zip(tree_leaves(gsum), tree_leaves(g)):
+                    a.add_(x)
             return g
 
-        agg, cst, metrics = aggregate(cst, grad_of, alpha_k, cfg)
-        # the summed full local gradients ARE the global gradient
-        gnorm = tree_sq_norm(gsum).cpu()
+        def stale_of(m):
+            return stale_side_grads(grad_at_raw(m), cst.lazy.theta_last[m],
+                                    corr.pop(m, None), source.scale)
+
+        if self.baseline is None:
+            agg, cst, metrics = aggregate(
+                cst, grad_of, alpha_k, cfg, params=params,
+                stale_of=stale_of if self.wk2 else None)
+            qe, mb = metrics.radius_max, metrics.mean_bits
+        else:
+            agg, cst, qe, mb = self._baseline_round(cst, grad_of,
+                                                    sum(l.numel() for l in
+                                                        tree_leaves(params)))
+        # the summed full local gradients ARE the global gradient; a
+        # stochastic source takes its own full-data backprop, now that the
+        # workers' gradients are freed
+        gnorm = (source.grad_norm_sq(params) if gsum is None
+                 else tree_sq_norm(gsum).cpu())
         del gsum
 
         step = (torch.tensor(alpha_k, dtype=F32) if isinstance(alpha_k, float)
@@ -248,17 +475,51 @@ class RoundEngine:
         new_leaves, dsq_parts = [], []
         leaves, treedef = tree_flatten(params)
         for t, a in zip(leaves, tree_leaves(agg)):
-            nt = t - step.to(t.device) * a
-            if nt.numel():
+            # theta - alpha * agg, one FMA as XLA contracts it under jit
+            nt = fma_f32(-step.to(t.device), a, t)
+            if self.baseline is None and nt.numel():
                 dsq_parts.append((nt - t).square().sum())
             new_leaves.append(nt)
         new_params = tree_unflatten(treedef, new_leaves)
-        dsq = (torch.stack(dsq_parts).sum().cpu() if dsq_parts
-               else torch.zeros((), dtype=F32))
-        cst = finalize_step(cst, dsq)
+        if self.baseline is None:
+            dsq = (torch.stack(dsq_parts).sum().cpu() if dsq_parts
+                   else torch.zeros((), dtype=F32))
+            cst = finalize_step(cst, dsq)
         rec = (loss.cpu(), gnorm, cst.total_uploads, cst.total_bits.clone(),
-               metrics.radius_max, metrics.mean_bits)
+               qe, mb)
         return (new_params, cst, pstate), rec
+
+    def _baseline_round(self, cst: CommState, grad_of, p: int):
+        """Dense-baseline aggregation: every worker uploads its compressed
+        gradient, summed in worker order; no server recursion, no skip
+        state.  ``mean_bits`` is the mean wire bits per coordinate."""
+        keys = self.source.stream_keys(1, cst.step)
+        agg, bits_m = None, []
+        for m in range(self.n_workers):
+            g = grad_of(m)
+            if self.baseline == "sgd":
+                c, b = g, torch.tensor(float(dense_bits(p)), dtype=F32)
+            elif self.baseline == "qsgd":
+                c, b = qsgd_compress(keys[m], g, self.bits)
+            else:
+                c, b = ssgd_compress(keys[m], g, self.density)
+            del g
+            if agg is None:
+                agg = tree_map(torch.zeros_like, c)
+            for a, x in zip(tree_leaves(agg), tree_leaves(c)):
+                a.add_(x)
+            del c
+            bits_m.append(b)
+        bits_m = torch.stack(bits_m)
+        # jnp.mean(bits) / p under jit: XLA multiplies by the product of
+        # the two reciprocals, folded in float32
+        inv = (torch.tensor(1.0 / self.n_workers, dtype=F32)
+               * torch.tensor(1.0 / p, dtype=F32))
+        mb = bits_m.sum() * inv
+        cst = cst._replace(total_bits=cst.total_bits + bits_m.sum(),
+                           total_uploads=cst.total_uploads + self.n_workers,
+                           step=cst.step + 1)
+        return agg, cst, torch.zeros((), dtype=F32), mb
 
     def run_from(self, carry, steps: int):
         """``steps`` rounds from an arbitrary carry.  Returns

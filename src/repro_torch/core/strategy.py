@@ -1,5 +1,5 @@
-"""Communication strategies GD / QGD / LAG / LAQ, port of
-``repro/core/strategy.py`` (deterministic slice).
+"""Communication strategies GD / QGD / LAG / LAQ and their stochastic
+variants, port of ``repro/core/strategy.py``.
 
     quantize?  lazy-skip?
 GD     no         no        theta^{k+1} = theta^k - alpha * sum_m grad_m
@@ -16,11 +16,14 @@ host (one sync per worker), and a skipped worker's buffers are simply not
 committed instead of being selected against zeros.
 
 Ported branches of ``worker_update``: dense (gd/lag), fixed-width
-quantized, adaptive width (A-LAQ, ``bit_schedule``), the sparse top-k wire
-(``compressor="topk"``) and error feedback (``error_feedback``, with the
-sparse or the dense wire).  Features of the reference state machine that
-are not ported yet (rand-k, participation, lazy rules other than 7a,
-SVRG, faults and defenses, robust aggregators, bf16 state) raise
+quantized, adaptive width (A-LAQ, ``bit_schedule``), the sparse top-k and
+rand-k wires (``compressor``), error feedback (``error_feedback``), and
+the four skip rules (``lazy_rule``: the paper's 7a and the LASG rules of
+:mod:`repro_torch.core.lazy_rules`, whose per-worker state rides in
+``CommState.lazy``).  ``CommState.svrg`` holds the SVRG anchors that the
+engine corrects stochastic gradients with (``grad_mode="svrg"``).  Features
+of the reference state machine that are not ported yet (participation,
+faults and defenses, robust aggregators, bf16 state) raise
 ``NotImplementedError`` from :func:`check_supported`, naming their ROADMAP
 item.
 """
@@ -32,9 +35,12 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 from .adaptive import BitSchedule, EtaSchedule, select_bits
-from .compressors import (COMPRESSORS, ErrorState, init_error_state,
-                          static_k)
+from .compressors import (COMPRESSORS, ErrorState, compressor_keys,
+                          init_error_state, static_k)
 from .criterion import CriterionConfig, push_history, should_skip
+from .lazy_rules import (LAZY_RULES, LasgConfig, LazyState, commit_upload,
+                         empty_lazy_state, init_lazy_state, lazy_rule_step,
+                         store_slice, worker_slice)
 from .quantize import (dense_bits, fma_f32, sparse_upload_bits, tree_size,
                        tree_sq_norm, upload_bits)
 from .wire import get_backend, sparse_roundtrip
@@ -55,16 +61,17 @@ class StrategyConfig(NamedTuple):
     state_bf16: bool = False        # qhat/server_agg in bf16 (not ported)
     bit_schedule: Optional[BitSchedule] = None  # adaptive widths (A-LAQ)
     wire_backend: str = "reference"  # "reference" | "fused" (core/wire.py)
-    lazy_rule: str = "laq7a"        # only the paper's eq. 7a is ported
-    lasg: Optional[object] = None   # LASG constants (lazy rules not ported)
-    grad_mode: str = "sgd"          # "svrg" not ported
-    svrg_period: int = 20
+    lazy_rule: str = "laq7a"        # skip rule, one of LAZY_RULES
+    lasg: LasgConfig = LasgConfig()  # constants of the LASG rules
+    grad_mode: str = "sgd"          # "svrg": variance-reduced stochastic
+                                    # gradients (CommState.svrg anchors)
+    svrg_period: int = 20           # rounds between svrg anchor refreshes
     eta_schedule: EtaSchedule = EtaSchedule()  # per-round stepsize alpha_k
     participation: str = "full"     # only "full" is ported
     participation_p: float = 1.0
     max_delay: int = 0
     participation_seed: int = 0
-    compressor: str = "none"        # "topk" sparse wire; "randk" not ported
+    compressor: str = "none"        # "topk" / "randk" sparse wire
     compressor_k: float = 0.25      # kept fraction, k = static_k(frac, p)
     error_feedback: bool = False    # EF-LAQ residual in CommState.error
     ef_damping: float = 0.5         # g_eff = g + eta * e
@@ -78,6 +85,10 @@ class StrategyConfig(NamedTuple):
     @property
     def quantized(self) -> bool:
         return self.kind in ("qgd", "laq")
+
+    @property
+    def variance_reduced(self) -> bool:
+        return self.grad_mode == "svrg"
 
     @property
     def lazy(self) -> bool:
@@ -112,14 +123,15 @@ def check_supported(cfg: StrategyConfig):
             cfg.quantized and not cfg.adaptive):
         raise ValueError("the compressor pipeline / error feedback require "
                          "a fixed-bit quantized kind (qgd / laq)")
+    if cfg.lazy_rule not in LAZY_RULES:
+        raise ValueError(f"unknown lazy rule {cfg.lazy_rule!r}; have "
+                         f"{LAZY_RULES}")
+    if cfg.grad_mode not in ("sgd", "svrg"):
+        raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
     gated = [
-        (cfg.lazy and cfg.lazy_rule != "laq7a", "Lazy rules and SVRG"),
-        (cfg.grad_mode != "sgd", "Lazy rules and SVRG"),
-        (cfg.compressor == "randk", "RNG parity"),
         (cfg.participation != "full", "Participation"),
         (cfg.faults is not None or cfg.defense is not None, "Robustness"),
         (cfg.aggregator != "sum", "Robustness"),
-        (cfg.lasg is not None, "Lazy rules and SVRG"),
         (cfg.state_bf16, "LM workload"),
     ]
     for on, item in gated:
@@ -129,11 +141,36 @@ def check_supported(cfg: StrategyConfig):
                 f"(ROADMAP.md queue 1: {item})")
 
 
+class SvrgState(NamedTuple):
+    """Per-worker SVRG anchor (``grad_mode="svrg"``): ``theta_anchor`` the
+    iterate at the last refresh and ``mu_anchor`` the worker's full local
+    gradient there, each a list of W pytrees, or both ``None``.  Between
+    refreshes the engine feeds ``g(theta; xi) - g(theta_anchor; xi) + mu``
+    to the rule and the quantizer (``core/engine.py``)."""
+    theta_anchor: Optional[list]
+    mu_anchor: Optional[list]
+
+
+def init_svrg_state(grad_mode: str, grad_template,
+                    n_workers: int) -> SvrgState:
+    """The template's values (the initial iterate) as the anchor, shared by
+    the W workers, and no ``mu`` yet: every run starts at step 0, whose
+    refresh sets both before they are read."""
+    if grad_mode not in ("sgd", "svrg"):
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    if grad_mode != "svrg":
+        return SvrgState(None, None)
+    snapshot = tree_map(lambda l: l.to(F32), grad_template)
+    return SvrgState(
+        theta_anchor=[snapshot] * n_workers, mu_anchor=[None] * n_workers)
+
+
 class CommState(NamedTuple):
-    """LAQ state.  ``qhat`` (and ``error.residual`` under error feedback)
-    is a list of W per-worker pytrees on the parameters' device,
-    ``server_agg`` one pytree there; the small bookkeeping lives on the
-    host as float32/int CPU tensors and ints.
+    """LAQ state.  ``qhat`` (and ``error.residual`` under error feedback,
+    the LASG pytrees of ``lazy`` and the SVRG anchors of ``svrg``) is a
+    list of W per-worker pytrees on the parameters' device, ``server_agg``
+    one pytree there; the small bookkeeping lives on the host as
+    float32/int CPU tensors and ints.
 
     :func:`aggregate` updates the per-worker lists and ``server_agg`` in
     place to hold memory at one copy each.
@@ -147,7 +184,9 @@ class CommState(NamedTuple):
     total_bits: torch.Tensor  # float32, as in the reference
     total_uploads: int
     step: int
+    lazy: LazyState         # per-worker LASG estimator state
     R_anchor: torch.Tensor  # [W] anchor radius of the "rel" adaptive thresholds
+    svrg: SvrgState         # per-worker SVRG anchors (grad_mode="svrg")
     error: ErrorState = ErrorState(None)  # [W] EF residuals (error_feedback)
 
 
@@ -171,6 +210,7 @@ def init_comm_state(grad_template, n_workers: int,
     # clocks start at t_bar when first_round_upload: criterion (7b) then
     # forces a dense first round, bootstrapping qhat / the server aggregate
     clock0 = cfg.criterion.t_bar if (cfg.lazy and cfg.first_round_upload) else 0
+    lazy_rule = cfg.lazy_rule if cfg.lazy else "laq7a"
     return CommState(
         qhat=[tree_map(zeros, grad_template) for _ in range(n_workers)],
         server_agg=tree_map(zeros, grad_template),
@@ -181,7 +221,9 @@ def init_comm_state(grad_template, n_workers: int,
         total_bits=torch.zeros((), dtype=F32),
         total_uploads=0,
         step=0,
+        lazy=init_lazy_state(lazy_rule, grad_template, n_workers),
         R_anchor=torch.zeros(n_workers, dtype=F32),
+        svrg=init_svrg_state(cfg.grad_mode, grad_template, n_workers),
         error=init_error_state(cfg.error_feedback, grad_template, n_workers),
     )
 
@@ -201,18 +243,25 @@ class WorkerOut(NamedTuple):
     committed: bool         # the server applied the payload (== uploaded)
     R_anchor_new: torch.Tensor  # updated "rel" threshold anchor
     error_new: object = None    # the new EF residual, when committed
+    lazy_new: Optional[LazyState] = None  # the worker's new LASG slice
 
 
 def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
                   n_workers: int, cfg: StrategyConfig, *, bits_spent_m=0.0,
-                  step: int = 0, R_anchor_m=None,
-                  error_m=None) -> WorkerOut:
+                  step: int = 0, R_anchor_m=None, error_m=None,
+                  lazy_m: Optional[LazyState] = None, params=None,
+                  grad_stale_m=None, ckey_m=None) -> WorkerOut:
     """One worker's width selection + quantize + skip decision (dense,
     fixed-width, adaptive, sparse and error-feedback branches of the
-    reference, laq7a rule).  ``error_m`` is the worker's residual pytree
-    (error feedback only); the new residual ``g_eff - q_new`` is formed in
-    place in ``g_eff``, which this function owns."""
+    reference, under any of its four skip rules).  ``error_m`` is the
+    worker's residual pytree (error feedback only); the new residual
+    ``g_eff - q_new`` is formed in place in ``g_eff``, which this function
+    owns.  ``lazy_m`` is the worker's LASG slice, ``params`` the current
+    iterate (``lasg_wk2``/``lasg_ps``), ``grad_stale_m`` the WK2 second
+    backprop and ``ckey_m`` the worker's rand-k key."""
     check_supported(cfg)
+    if lazy_m is None:
+        lazy_m = empty_lazy_state()
     p = tree_size(grad_m)
     n_sidecars = len(tree_leaves(grad_m)) if cfg.per_leaf_radius else 1
     R_anchor_new = (torch.zeros((), dtype=F32) if R_anchor_m is None
@@ -221,7 +270,8 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         # g_eff = g + eta e, one FMA as XLA contracts it
         g_eff = tree_map(lambda g, e: fma_f32(cfg.ef_damping, e, g.to(F32)),
                          grad_m, error_m)
-        grad_m = None       # the branches below read g_eff only
+        if cfg.lazy_rule != "lasg_wk":
+            grad_m = None   # the branches below read g_eff only
     else:
         g_eff = grad_m
     backend = get_backend(cfg.wire_backend)
@@ -243,7 +293,7 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
     elif cfg.compressed:
         k = static_k(cfg.compressor_k, p)
         srt = sparse_roundtrip(backend, g_eff, qhat_m, cfg.effective_bits, k,
-                               cfg.compressor)
+                               cfg.compressor, key=ckey_m)
         q_new, delta, R = srt.q_new, srt.delta, srt.R
         err_sq, innovation_sq = srt.err_sq, srt.innovation_sq
         del srt
@@ -269,17 +319,29 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         bits_if_upload = float(dense_bits(p))
         width_m = 32.0
 
-    err_sq = err_sq.cpu()
-    if cfg.lazy:
-        skip = bool(should_skip(innovation_sq.cpu(), theta_hist, alpha,
-                                n_workers, err_sq, eps_hat_sq_m, clock_m,
-                                cfg.criterion))
-    else:
+    err_sq, innovation_sq = err_sq.cpu(), innovation_sq.cpu()
+    lazy_pre, stats = lazy_m, None
+    if not cfg.lazy:
         skip = False
+    elif cfg.lazy_rule == "laq7a":
+        skip = bool(should_skip(innovation_sq, theta_hist, alpha, n_workers,
+                                err_sq, eps_hat_sq_m, clock_m, cfg.criterion))
+    else:
+        skip, lazy_pre, stats = lazy_rule_step(
+            cfg.lazy_rule, cfg.lasg, cfg.criterion, grad_m=grad_m,
+            params=params, lazy_m=lazy_m, innovation_sq=innovation_sq,
+            err_sq=err_sq, eps_hat_sq_m=eps_hat_sq_m, clock_m=clock_m,
+            theta_hist=theta_hist, alpha=alpha, n_workers=n_workers,
+            grad_stale_m=grad_stale_m)
+    del grad_m, grad_stale_m
     uploaded = not skip
     committed = uploaded
     bits_m = (torch.tensor(float(uploaded), dtype=F32)
               * torch.as_tensor(bits_if_upload, dtype=F32))
+    lazy_new = (lazy_pre if stats is None else
+                commit_upload(cfg.lazy_rule, cfg.lasg, lazy_pre, committed,
+                              stats, params=params,
+                              innovation_sq=innovation_sq))
     error_new = None
     if cfg.error_feedback and committed:
         # e_new = g_eff - q_new: the mass this round's compress dropped
@@ -291,7 +353,8 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         eps_hat_sq_new=err_sq if committed else eps_hat_sq_m,
         clock_new=0 if committed else int(clock_m) + 1,
         uploaded=uploaded, bits_m=bits_m, R=R.cpu(), width_m=width_m,
-        committed=committed, R_anchor_new=R_anchor_new, error_new=error_new)
+        committed=committed, R_anchor_new=R_anchor_new, error_new=error_new,
+        lazy_new=lazy_new)
 
 
 def _add_(acc, tree):
@@ -300,19 +363,30 @@ def _add_(acc, tree):
 
 
 def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
-              cfg: StrategyConfig):
+              cfg: StrategyConfig, *, params=None,
+              stale_of: Optional[Callable[[int], object]] = None):
     """Aggregate the workers' gradients into the LAQ gradient.
 
     ``grad_of(m)`` returns worker m's gradient pytree; it is called once
     per worker, in order, and each gradient is dropped once its worker is
-    committed.  Returns ``(agg_grad, new_state, metrics)``; ``agg_grad`` is
-    the new server aggregate.  The caller applies ``theta <- theta - alpha
-    * agg_grad`` and then :func:`finalize_step`.
+    committed.  ``stale_of(m)``, the stale side of the reference (the WK2
+    second backprop, ``lasg_wk2`` only), is called right after it, so only
+    the worker in hand's stale gradient is live.  ``params`` is the
+    current iterate (``lasg_wk2``/``lasg_ps``).  Returns ``(agg_grad,
+    new_state, metrics)``; ``agg_grad`` is the new server aggregate.  The
+    caller applies ``theta <- theta - alpha * agg_grad`` and then
+    :func:`finalize_step`.
 
-    ``state.qhat``, ``state.error.residual`` and ``state.server_agg`` are
-    updated in place.
+    ``state.qhat``, ``state.error.residual``, the pytree lists of
+    ``state.lazy`` and ``state.server_agg`` are updated in place.
     """
     n_workers = len(state.qhat)
+    ckeys = (compressor_keys(cfg.compressor_seed, state.step, n_workers,
+                             device=tree_leaves(state.server_agg)[0].device)
+             if cfg.compressor == "randk" else None)
+    lazy = state.lazy._replace(stat_ema=state.lazy.stat_ema.clone(),
+                               stat_count=state.lazy.stat_count.clone(),
+                               sigma_hat_sq=state.lazy.sigma_hat_sq.clone())
     # sum_m delta_masked first, then agg + sum, as the reference's
     # a + jnp.sum(d, axis=0): the zero-started running sum repeats its
     # additions in worker order (a skipped worker adds an exact zero)
@@ -326,7 +400,12 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
                            state.clocks[m], state.theta_hist, alpha,
                            n_workers, cfg, bits_spent_m=state.bits_spent[m],
                            step=state.step, R_anchor_m=state.R_anchor[m],
-                           error_m=None if residual is None else residual[m])
+                           error_m=None if residual is None else residual[m],
+                           lazy_m=worker_slice(lazy, m), params=params,
+                           grad_stale_m=(None if stale_of is None
+                                         else stale_of(m)),
+                           ckey_m=None if ckeys is None else ckeys[m])
+        store_slice(lazy, m, wo.lazy_new)
         if wo.committed:
             _add_(dsum, wo.delta_masked)
             state.qhat[m] = wo.qhat_new
@@ -354,7 +433,7 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
                            radius_max=torch.stack(radii).amax(),
                            mean_bits=mean_bits)
     new_state = state._replace(
-        eps_hat_sq=eps, clocks=clocks, R_anchor=anchors,
+        eps_hat_sq=eps, clocks=clocks, R_anchor=anchors, lazy=lazy,
         bits_spent=state.bits_spent + bits_m,
         total_bits=state.total_bits + bits,
         total_uploads=state.total_uploads + uploads,

@@ -278,10 +278,12 @@ class SparseRoundtrip(NamedTuple):
 
 
 def sparse_roundtrip(backend, grad, qhat, bits: int, k: int, mode: str,
-                     with_payload: bool = False) -> SparseRoundtrip:
+                     with_payload: bool = False, *,
+                     key=None) -> SparseRoundtrip:
     """Sparsify-then-quantize over the flattened innovation ``grad -
     qhat`` (``grad`` is the EF-corrected gradient): k coordinates survive
-    (``mode="topk"``), are quantized on the sign-magnitude b-bit grid over
+    (``mode="topk"``, or ``"randk"`` with the worker's selection ``key``),
+    are quantized on the sign-magnitude b-bit grid over
     their ``[lo, hi]``, and are scattered back into a dense delta.
 
     ``err_sq`` is the support-restricted error ``sum_S (d_i - deq_i)^2``
@@ -298,7 +300,7 @@ def sparse_roundtrip(backend, grad, qhat, bits: int, k: int, mode: str,
     d, meta = _flat(grad)
     q_new, _ = _flat(qhat)
     d.sub_(q_new)                       # the innovation, in place
-    sel = select_support(mode, d, k)
+    sel = select_support(mode, d, k, key)
     p = d.shape[0]
     del d
     lo, hi = sparse_grid(sel.vals, bits)

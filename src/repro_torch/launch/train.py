@@ -227,6 +227,11 @@ def _check_step_supported(strategy: StrategyConfig, wire: str, worker_axes,
     if wire not in ("float", "packed"):
         raise ValueError(f"wire must be 'float' or 'packed', got {wire!r}")
     check_supported(strategy)
+    if (strategy.lazy and strategy.lazy_rule != "laq7a") or (
+            strategy.grad_mode != "sgd"):
+        _not_ported(f"lazy_rule={strategy.lazy_rule!r} / grad_mode="
+                    f"{strategy.grad_mode!r}",
+                    "Sharded step: Lazy rules and SVRG")
     if strategy.compressed or strategy.error_feedback:
         _not_ported("the compressor / error-feedback wire",
                     "Sharded step: compressors and error feedback")

@@ -2,7 +2,8 @@
 ``wire.sparse_roundtrip``) against the reference's, run under ``jax.jit``.
 
 The top-k support is identical to ``jax.lax.top_k``'s, ties to the lowest
-index, indices ascending.  Codes, deq, lo/hi (b > 1), q_new, delta and the
+index, indices ascending; so is the rand-k support, drawn with
+``repro_torch.random`` from the same key.  Codes, deq, lo/hi (b > 1), q_new, delta and the
 payload are bitwise; the two moments agree to rtol 1e-5 (float32 reduction
 order).  At b = 1 the grid endpoints are a mean, which torch reduces in
 another order than XLA, so b = 1 is held at the kernel level with the
@@ -126,12 +127,12 @@ def test_sparse_roundtrip_matches_reference(backend, frac, bits):
 
 
 def test_randk_names_rng_parity():
-    with pytest.raises(NotImplementedError, match="RNG parity"):
+    """rand-k is ported with RNG parity: it needs its selection key, as the
+    reference does, and the strategy lets it through."""
+    with pytest.raises(ValueError, match="selection key"):
         tcomp.select_support("randk", torch.ones(10), 3)
     from repro_torch.core.strategy import StrategyConfig, check_supported
-    with pytest.raises(NotImplementedError, match="RNG parity"):
-        check_supported(StrategyConfig(compressor="randk",
-                                       error_feedback=True))
+    check_supported(StrategyConfig(compressor="randk", error_feedback=True))
     with pytest.raises(ValueError, match="unknown sparsifier"):
         tcomp.select_support("bottomk", torch.ones(10), 3)
 
@@ -147,3 +148,98 @@ def test_error_state_is_gated_per_worker():
     back = tcomp._unflat(flat, meta)
     assert back["a"].data_ptr() == flat.data_ptr()      # views, no copy
     assert flat.data_ptr() != template["a"].data_ptr()
+
+
+def _tkey(seed, step=0):
+    from repro_torch import random
+    return random.fold_in(random.PRNGKey(seed, device="cpu"), step)
+
+
+def _jkey(seed, step=0):
+    return jax.random.fold_in(jax.random.PRNGKey(seed), step)
+
+
+@pytest.mark.parametrize("k", [1, 700, 2500, 4999, 5003, 0])
+@pytest.mark.parametrize("p", [5003, 1 << 16])
+def test_randk_support_matches_reference(k, p):
+    """The k largest of p uniform scores; at p = 2^16 the scores tie (a
+    float32 uniform has 2^23 values), and the ties go to the lowest index
+    as in ``jax.lax.top_k``."""
+    flat = np.random.default_rng(k).standard_normal(p).astype(np.float32)
+    got = tcomp.select_support("randk", torch.from_numpy(flat), k,
+                               _tkey(k, 3))
+    want = jax.jit(lambda x, key: jcomp.select_support("randk", x, k, key))(
+        flat, _jkey(k, 3))
+    _eq(got.idx.numpy(), want.idx)
+    _eq(got.vals.numpy(), want.vals)
+
+
+def test_compressor_keys_match_reference():
+    got = tcomp.compressor_keys(5, 11, 4, device="cpu")
+    want = jcomp.compressor_keys(5, 11, 4)
+    _eq(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def _grad_tree(seed, integers):
+    """Leaves of both signs; ``integers`` makes every value a small
+    integer, so the norm and the |v| sum are exact in float32 in any
+    order, and the outputs can be held bitwise."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (37, 5), "b": (123,), "c": (4, 4, 3)}
+    if integers:
+        return {n: rng.integers(-9, 10, s).astype(np.float32)
+                for n, s in shapes.items()}
+    return {n: (rng.standard_normal(s) * 10.0 ** rng.uniform(-3, 2)).astype(
+        np.float32) for n, s in shapes.items()}
+
+
+@pytest.mark.parametrize("integers", (True, False), ids=("exact", "float"))
+@pytest.mark.parametrize("bits", (2, 3, 4, 8))
+def test_qsgd_matches_reference(bits, integers):
+    """Same key, same levels: bitwise where the norm is exact; otherwise
+    the norm is a float32 sum of squares in another order, and the
+    outputs agree to rtol 1e-6 (a few ulps of the norm).  ``* norm / s``
+    is XLA's ``* norm * f32(1/s)`` in both cases."""
+    for seed in range(4):
+        g = _grad_tree(seed, integers)
+        want, wbits = jax.jit(lambda k, g: jcomp.qsgd_compress(k, g, bits))(
+            _jkey(seed), g)
+        got, tbits = tcomp.qsgd_compress(
+            _tkey(seed), {n: torch.from_numpy(v) for n, v in g.items()}, bits)
+        assert float(tbits) == float(wbits)
+        for n in g:
+            if integers:
+                _eq(got[n].numpy(), want[n])
+            else:
+                np.testing.assert_allclose(got[n].numpy(), want[n],
+                                           rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("integers", (True, False), ids=("exact", "float"))
+@pytest.mark.parametrize("density", (0.05, 0.1, 0.5, 1.0))
+def test_ssgd_matches_reference(density, integers):
+    """Same key, same survivors: the wire bits are exact; the rescaled
+    survivors bitwise where the |v| sum is exact, else to rtol 1e-6."""
+    for seed in range(4):
+        g = _grad_tree(seed, integers)
+        want, wbits = jax.jit(lambda k, g: jcomp.ssgd_compress(
+            k, g, density))(_jkey(seed), g)
+        got, tbits = tcomp.ssgd_compress(
+            _tkey(seed), {n: torch.from_numpy(v) for n, v in g.items()},
+            density)
+        assert float(tbits) == float(wbits)
+        for n in g:
+            _eq(got[n].numpy() != 0, np.asarray(want[n]) != 0)
+            if integers:
+                _eq(got[n].numpy(), want[n])
+            else:
+                np.testing.assert_allclose(got[n].numpy(), want[n],
+                                           rtol=1e-6, atol=0)
+
+
+def test_dense_baselines_of_a_zero_gradient():
+    z = {"w": torch.zeros(5, 3)}
+    out, bits = tcomp.qsgd_compress(_tkey(0), z, 4)
+    assert float(out["w"].abs().sum()) == 0 and float(bits) == 32 + 5 * 15
+    out, bits = tcomp.ssgd_compress(_tkey(0), z, 0.5)
+    assert float(out["w"].abs().sum()) == 0 and float(bits) == 0

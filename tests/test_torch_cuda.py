@@ -322,3 +322,51 @@ def test_sharded_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     for (u1, b1, l1), (u2, b2, l2) in zip(runs["cuda"], runs["cpu"]):
         assert (u1, b1) == (u2, b2)
         assert abs(l1 - l2) <= 1e-4 * abs(l2)
+
+
+@pytest.mark.parametrize("partitionable", (True, False))
+def test_random_draws_on_the_card_equal_the_cpu(cuda, partitionable):
+    """``repro_torch.random`` is integer work: the same bits on the card and
+    the CPU, in both layouts."""
+    from repro_torch import random
+    with random.threefry_partitionable(partitionable):
+        for seed in (0, 7, 2**32 - 1):
+            draws = {}
+            for dev in ("cpu", "cuda"):
+                k = random.fold_in(random.PRNGKey(seed, device=dev), 3)
+                draws[dev] = (random.split(k, 3), random.random_bits(k, (1001,)),
+                              random.uniform(k, (5, 7)),
+                              random.randint(k, (999,), 0, 12),
+                              random.randint(k, (9,), -5, 2**31 - 1),
+                              random.bernoulli(k, 0.9, (33,)))
+            for a, b in zip(draws["cuda"], draws["cpu"]):
+                assert a.device.type == "cuda"
+                assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kind", ("slaq", "slaq_ps", "qsgd", "ssgd"))
+def test_run_stochastic_on_the_card_equals_the_cpu(cuda, kind):
+    """A small Table 3 regression: the same minibatches, uploads and bits
+    on the card as on the CPU; floats to rtol 1e-4 (other reductions)."""
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.simulated import run_stochastic
+    from repro_torch.core.strategy import StrategyConfig
+    gen = torch.Generator().manual_seed(0)
+    X = torch.randn(6, 12, 8, generator=gen)
+    Y = X @ torch.linspace(-1.0, 1.0, 8) + 0.3 * torch.randn(6, 12,
+                                                             generator=gen)
+
+    def loss(params, data):
+        x, y = data
+        return 0.5 * torch.sum(torch.square(x @ params["w"] - y)) / 72
+
+    cfg = StrategyConfig(kind="laq", bits=4, wire_backend="fused",
+                         criterion=CriterionConfig(D=10, xi=0.08, t_bar=20))
+    runs = {dev: run_stochastic(loss, {"w": torch.zeros(8)}, (X, Y), kind,
+                                steps=30, alpha=0.3, batch=4, bits=4, seed=2,
+                                laq_cfg=cfg, device=dev)
+            for dev in ("cpu", "cuda")}
+    a, b = runs["cuda"], runs["cpu"]
+    for f in ("cum_uploads", "cum_bits", "mean_bits"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    torch.testing.assert_close(a.loss, b.loss, rtol=1e-4, atol=1e-6)

@@ -10,12 +10,22 @@ The fixture data is drawn with ``jax.random`` as there, under
 ``test_engine_parity.py`` fails under jax >= 0.5).  The data reaches the
 port through numpy.
 
-Upload and bit counts are held exactly.  Loss, params, grad_norm_sq and the
-radius trajectory are held to rtol 1e-5 / atol 1e-5: XLA may contract
-``theta - alpha * g`` and the gradient's multiplies into FMAs and reduces in
-another order than torch, so the float trajectories differ at the ulp, and
-an ulp in a late radius can move one code across its rounding boundary,
-which shifts that coordinate by one grid step 2 tau R (a few 1e-6 here).
+Upload and bit counts are held exactly, against the goldens and against
+the JAX engine run today on the same data.  Loss, params, grad_norm_sq and
+the radius trajectory are held to rtol 1e-5 / atol 1e-5: XLA contracts the
+gradient's multiplies into FMAs and reduces in another order than torch,
+so the float trajectories differ at the ulp, and an ulp in a late radius
+can move one code across its rounding boundary, which shifts that
+coordinate by one grid step 2 tau R (a few 1e-6 here).
+
+One golden decision is not today's: XLA (jax 0.9) contracts the update
+``theta - alpha * agg`` into one FMA, and the port rounds it so too.  With
+it the JAX engine itself uploads one more time in round 60 of ``grad/laq``
+than the golden, captured with an older XLA, records; the port does the
+same, and its parameters then equal the JAX engine's bit for bit.  All 60
+rounds' counts are held to the JAX engine and to the golden, which differs
+only in that one upload of round 60: one more upload, its 32 + 4 P wire
+bits, and a mean width of 4 where the golden has none.
 """
 import os
 
@@ -51,20 +61,35 @@ def quadratic_loss(params, data):
 @pytest.mark.parametrize("backend", ("reference", "fused"))
 @pytest.mark.parametrize("kind", ("gd", "qgd", "lag", "laq"))
 def test_port_reproduces_engine_golden(kind, backend):
+    from repro.core.criterion import CriterionConfig as JCriterion
+    from repro.core.simulated import run_gradient_based as jrun
+    from repro.core.strategy import StrategyConfig as JStrategy
+
     goldens = np.load(GOLDEN_PATH)
     tag = f"grad/{kind}/{backend}"
+    crit = dict(D=10, xi=0.08, t_bar=100)
     cfg = StrategyConfig(kind=kind, bits=4, wire_backend=backend,
-                         criterion=CriterionConfig(D=10, xi=0.08, t_bar=100))
+                         criterion=CriterionConfig(**crit))
     res = run_gradient_based(quadratic_loss,
                              {"x": torch.zeros(P, dtype=torch.float32)},
                              quadratic_data(), cfg, steps=60, alpha=0.3,
                              device="cpu")
-    np.testing.assert_array_equal(res.cum_uploads.numpy(),
-                                  goldens[f"{tag}/cum_uploads"])
-    np.testing.assert_array_equal(res.cum_bits.numpy(),
-                                  goldens[f"{tag}/cum_bits"])
-    np.testing.assert_array_equal(res.mean_bits.numpy(),
-                                  goldens[f"{tag}/mean_bits"])
+    centers, scales = quadratic_data()
+    live = jrun(_jax_quadratic_loss, {"x": np.zeros(P, np.float32)},
+                (centers.numpy(), scales.numpy()),
+                JStrategy(kind=kind, bits=4, wire_backend=backend,
+                          criterion=JCriterion(**crit)), steps=60, alpha=0.3)
+    # the golden's round 60 of grad/laq predates XLA's FMA update: the
+    # one upload it lacks, and nothing else, is added to it
+    extra = {"cum_uploads": 1, "cum_bits": 32 + 4 * P, "mean_bits": 4}
+    for field in ("cum_uploads", "cum_bits", "mean_bits"):
+        got = getattr(res, field).numpy()
+        np.testing.assert_array_equal(got, np.asarray(getattr(live, field)),
+                                      err_msg=field)
+        want = goldens[f"{tag}/{field}"].copy()
+        if kind == "laq":
+            want[59] += extra[field]
+        np.testing.assert_array_equal(got, want, err_msg=field)
     for field, got in (("loss", res.loss), ("grad_norm_sq", res.grad_norm_sq),
                        ("quant_err", res.quant_err),
                        ("params0", res.params["x"])):
@@ -80,7 +105,8 @@ def _jax_quadratic_loss(params, data):
 
 # The A-LAQ and EF-LAQ branches on the same quadratic, against the JAX
 # engine run live: an EF damping of 0.3 (its injection g + 0.3 e is one FMA
-# under jit), EF with the dense wire and with top-k, and the budget
+# under jit), EF with the dense wire, with top-k and with rand-k (its
+# support drawn per round and worker from compressor_keys), and the budget
 # controller of A-LAQ.
 FRONTIER_CASES = {
     "ef_dense": dict(kind="laq", bits=4, error_feedback=True, ef_damping=0.3),
@@ -88,6 +114,9 @@ FRONTIER_CASES = {
                     error_feedback=True, ef_damping=0.3),
     "topk_no_ef": dict(kind="qgd", bits=4, compressor="topk",
                        compressor_k=0.5),
+    "ef_randk": dict(kind="laq", bits=2, compressor="randk",
+                     compressor_k=0.25, error_feedback=True, ef_damping=0.3,
+                     compressor_seed=3),
     "alaq_budget": dict(kind="laq", bits=8, bit_schedule=dict(
         kind="budget", grid=(2, 4, 8), thresholds=(0.05, 0.3),
         total_bits=5000.0, horizon=40)),

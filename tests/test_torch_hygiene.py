@@ -7,7 +7,9 @@ import pathlib
 import pytest
 import torch
 
+from repro_torch import random
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.simulated import run_stochastic
 from repro_torch.data.synthetic import lm_worker_corpus
 from repro_torch.kernels import ops
 from repro_torch.models.model import init_params
@@ -43,6 +45,24 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="cuda"):
         lm_worker_corpus(0, 2, 2, 8, cfg.vocab)
     assert init_params(0, cfg, device="cpu")["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        random.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        random.uniform(random.PRNGKey(0), (3,))
+    assert random.uniform(random.PRNGKey(0, device="cpu"),
+                          (3,)).device.type == "cpu"
+
+    def loss(params, data):
+        x, y = data
+        return torch.sum(torch.square(x @ params["w"] - y))
+
+    data = (torch.ones(2, 4, 3), torch.zeros(2, 4))
+    kw = dict(steps=2, alpha=0.1, batch=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_stochastic(loss, {"w": torch.zeros(3)}, data, "qsgd", **kw)
+    res = run_stochastic(loss, {"w": torch.zeros(3)}, data, "qsgd",
+                         device="cpu", **kw)
+    assert res.params["w"].device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_bad_operands():

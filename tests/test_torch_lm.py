@@ -47,6 +47,7 @@ from repro_torch.core.adaptive import BitSchedule, EtaSchedule, select_bits
 from repro_torch.core.criterion import CriterionConfig
 from repro_torch.core.engine import AccumulatingSource, RoundEngine
 from repro_torch.core.strategy import StrategyConfig
+from repro_torch.data.synthetic import lm_worker_corpus
 from repro_torch.models.config import n_params
 from repro_torch.models.model import init_params, lm_loss, lm_worker_loss
 from repro_torch.tree import tree_leaves
@@ -273,3 +274,64 @@ def test_fused_alaq_round_holds_no_more_model_copies_than_laq(setup,
         kind="radius", grid=(2, 4, 8), threshold_mode="rel",
         thresholds=(0.05, 0.5))), "quantize_pack_adaptive")
     assert peaks["alaq"] < peaks["laq"] + 0.05, peaks
+
+
+@pytest.mark.parametrize("args", [(0, W, N_LOCAL, SEQ, None),
+                                  (3, W, 4, 512, 100352)],
+                         ids=("smoke", "stablelm_vocab"))
+def test_lm_worker_corpus_matches_reference(setup, args):
+    """The port draws the reference's corpus, token for token (default
+    threefry layout)."""
+    vocab = args[4] or setup[1].vocab
+    want = jax_corpus(*args[:4], vocab)
+    got = lm_worker_corpus(*args[:4], vocab, device="cpu")
+    for k in ("tokens", "targets"):
+        assert got[k].dtype == torch.int64
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# lm_frontier's stochastic "slaq" (benchmarks/lm_frontier.py:99-104: rule
+# lasg_wk, b=4; here on the fused wire), the same at b=8, and the WK2 rule
+# with SVRG anchors refreshed every 2 rounds.  At b=4 the quantization
+# slack lets every worker skip after the bootstrap round; at b=8 the
+# variance term makes every worker upload every round.
+STOCHASTIC = {
+    "slaq": dict(kind="laq", bits=4, lazy_rule="lasg_wk"),
+    "slaq_b8": dict(kind="laq", bits=8, lazy_rule="lasg_wk"),
+    "slaq_wk2_svrg": dict(kind="laq", bits=4, lazy_rule="lasg_wk2",
+                          grad_mode="svrg", svrg_period=2),
+}
+
+
+@pytest.mark.parametrize("method", STOCHASTIC)
+def test_stochastic_lm_rounds_match_reference_engine(setup, method):
+    """4 rounds of a stochastic AccumulatingSource (batch 4 in 2
+    microbatches, seed 0): the same sampled indices, exact uploads and
+    bits, loss to rtol 1e-4."""
+    cfg_j, cfg_t, params_j, corpus_j, params_t, corpus_t = setup
+    kw, rounds = dict(STOCHASTIC[method], per_leaf_radius=True,
+                      wire_backend="fused"), 4
+    src_j = JSource(jax_worker_loss(cfg_j, W), corpus_j, batch=4, seed=0,
+                    accum=ACCUM, scale=1.0)
+    want = JEngine(src_j, JStrategy(**kw, criterion=JCriterion(**LM_CRIT),
+                                    eta_schedule=JEta(**LM_ETA)),
+                   alpha=ALPHA).run(params_j, rounds)
+    src_t = AccumulatingSource(lm_worker_loss(cfg_t, W), corpus_t, batch=4,
+                               seed=0, accum=ACCUM, scale=1.0)
+    got = RoundEngine(src_t, StrategyConfig(
+        **kw, criterion=CriterionConfig(**LM_CRIT),
+        eta_schedule=EtaSchedule(**LM_ETA)), alpha=ALPHA).run(
+            params_t, rounds, device="cpu")
+    for step in range(rounds):
+        keys = src_j.stream_keys(0, step)
+        want_idx = np.stack([np.asarray(jax.random.randint(k, (4,), 0,
+                                                           N_LOCAL))
+                             for k in keys])
+        np.testing.assert_array_equal(src_t.indices(step).numpy(), want_idx)
+    np.testing.assert_array_equal(got.cum_uploads.numpy(),
+                                  np.asarray(want.cum_uploads))
+    np.testing.assert_array_equal(got.cum_bits.numpy(),
+                                  np.asarray(want.cum_bits))
+    assert int(got.cum_uploads[0]) == W
+    np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
+                               rtol=1e-4)
