@@ -34,7 +34,17 @@ CPU or to a plain version while a CUDA tensor is at hand):
    ``repro_torch.random`` (the ``jax.random`` draws) must give the same
    bits on the card as on the CPU, in both threefry layouts, and
    ``run_stochastic`` (slaq, slaq_ps, qsgd, ssgd; 30 rounds of a small
-   Table 3 regression) the same uploads, bits and mean bits.
+   Table 3 regression) the same uploads, bits and mean bits.  The
+   participation and robustness layer, card vs CPU: smoke stablelm (4
+   rounds) under phase 9's three paths and a bernoulli run with
+   undefended NaN corruption, crashes without reconciliation and the
+   median; the 10-worker quadratic (30 rounds) under fixed_k, bernoulli,
+   markov and delay participation with inf, sign-flip, bit-flip and
+   scaling faults, crashes, validation, gate, clip and the trimmed mean.
+   Uploads, bits and every worker's rejections equal.
+   ``run_with_watchdog`` with escalation (a temporary directory) gives
+   the same log on both; a checkpoint resume on the card equals the
+   unbroken run.
 4. The paths, each through ``RoundEngine.round`` with the kernels' launch
    counters zeroed just before it and read just after, on stablelm-1.6b at
    its published widths (d_model 2048, vocab 100352), float32 params and
@@ -70,8 +80,10 @@ CPU or to a plain version while a CUDA tensor is at hand):
 6. The exchange on the card: W=4 gloo ranks on the one card (payloads
    staged through pinned host memory), stablelm-1.6b at full width and 2
    layers, 3 steps each of the float wire and the packed wire at b=4 from
-   the same parameters and batch: the parameters must be bitwise equal
-   between the two wires, and the uploads and bits equal step by step.
+   the same parameters and batch, then 3 of each with bernoulli
+   participation (p=0.5) and validation with the norm gate: the
+   parameters must be bitwise equal between the two wires, and the
+   uploads and bits equal step by step and on every rank.
 7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
    {4, 8}, its rows printed.
 8. Stochastic rounds at stablelm-1.6b's published widths, as phase 4 but
@@ -83,6 +95,18 @@ CPU or to a plain version while a CUDA tensor is at hand):
    anchor gradients).  absmax and quantize_pack_fused launch rounds x W x
    12 times on each; the round-1 sampled indices are printed.  Losses
    finite, round 1 uploads from every worker, peak below 76 GB.
+9. Participation and the robustness layer at stablelm-1.6b's widths, as
+   phase 4 (W=4 of 2 x 512 tokens, b per path, 3 rounds): ``robust_full``
+   (24 layers, b=8: fixed_k 3 of 4, -40x gradient scaling and
+   crash-restart at p=0.25, validation, norm gate 4, clip 4, crash
+   reconciliation), ``robust_sort`` (8 layers, b=4: Markov churn p=0.75
+   with sojourn 8, MSB flips of 5% of the codes at p=0.5, validation,
+   trimmed mean with t=1) and ``delay`` (8 layers, b=8, max_delay 2).
+   The seeds (``ROBUST_SEEDS``) are checked against the deterministic
+   masks first: an absent worker, crashes of reachable workers and a
+   corrupted upload of a warm worker, which must be rejected.  absmax
+   and quantize_pack_fused launch rounds x W x 12 times on each path,
+   whoever was absent; losses finite; peak below 76 GB.
 
 Phase 2 also holds kernels 5 and 6 (``quantize_codes_fused``,
 ``quantize_codes_adaptive``) and kernel 3 (``quantize_pack``) at the 12
@@ -105,6 +129,7 @@ import multiprocessing as mp
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -119,8 +144,20 @@ TIMED_LAUNCHES = 20
 SHARDED_STEPS, SHARDED_ROWS, SHARDED_MICROBATCH, SHARDED_LR = 3, 2, 2, 1e-2
 EXCHANGE_W, EXCHANGE_LAYERS, EXCHANGE_ROWS = 4, 2, 1
 RANK_TIMEOUT = 600            # seconds for the phase-6 ranks
+EXCHANGE_DEFENDED = dict(participation="bernoulli", participation_p=0.5,
+                         participation_seed=1)   # phase 6, with the defense
 STOCH_LAYERS = {"slaq": 24, "slaq_wk": 8, "slaq_wk2_svrg": 6}  # phase 8
 STOCH_N_LOCAL, STOCH_BATCH, STOCH_ROUNDS = 4, 2, 3
+ROBUST_LAYERS = {"robust_full": 24, "robust_sort": 8, "delay": 8}  # phase 9
+ROBUST_ROUNDS = 3
+# seeds read off the deterministic masks on the CPU (robust_events): in 3
+# rounds robust_full has an absent worker every round, crashes of
+# reachable workers in round 2 and a corrupted upload of a warm (already
+# accepted) worker in round 3; robust_sort has absent workers and bit
+# flips on uploading workers in round 1
+ROBUST_SEEDS = {"robust_full": dict(participation_seed=0, fault_seed=25),
+                "robust_sort": dict(participation_seed=7, fault_seed=0)}
+SMALL_ROBUST_ROUNDS = 4
 
 
 def log(msg):
@@ -415,6 +452,241 @@ def stochastic_strategies():
                                         grad_mode="svrg", svrg_period=2,
                                         **base),
     }
+
+
+def robust_strategies():
+    """Phase 9's paths (and phase 3's small runs of them): lm_frontier's
+    criterion and 1/t stepsize on the fused wire with per-leaf radii, plus
+    participation, faults and defenses."""
+    from repro_torch.core.adaptive import EtaSchedule
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.defense import DefenseConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.strategy import StrategyConfig
+    base = dict(kind="laq", per_leaf_radius=True, wire_backend="fused",
+                criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
+                eta_schedule=EtaSchedule("inv_t", t0=30.0))
+    full, sort = ROBUST_SEEDS["robust_full"], ROBUST_SEEDS["robust_sort"]
+    return {
+        "robust_full": StrategyConfig(
+            bits=8, **base, participation="fixed_k", participation_p=0.75,
+            participation_seed=full["participation_seed"],
+            faults=FaultConfig(corrupt_p=0.25, corrupt_kind="scale",
+                               corrupt_scale=-40.0, crash_p=0.25,
+                               fault_seed=full["fault_seed"]),
+            defense=DefenseConfig(validate=True, gate_mult=4.0,
+                                  clip_mult=4.0, reconcile_crashes=True)),
+        "robust_sort": StrategyConfig(
+            bits=4, **base, participation="markov", participation_p=0.75,
+            markov_sojourn=8.0, participation_seed=sort["participation_seed"],
+            faults=FaultConfig(corrupt_p=0.5, corrupt_kind="bitflip",
+                               bitflip_frac=0.05,
+                               fault_seed=sort["fault_seed"]),
+            defense=DefenseConfig(validate=True), aggregator="trimmed_mean",
+            trim_frac=0.34),
+        "delay": StrategyConfig(bits=8, **base, participation="delay",
+                                max_delay=2),
+    }
+
+
+def robust_events(method, strategy, rounds):
+    """The deterministic availability and fault masks of a phase-9 path's
+    rounds, read on the CPU: ``(avail, crashed, corrupted)`` lists of [W]
+    bool lists (None where the path has no such stream)."""
+    from repro_torch.core.engine import make_participation
+    from repro_torch.core.faults import corruption_mask, crash_mask
+    part = make_participation(strategy, W)
+    state, avail = part.init(None), []
+    for k in range(rounds):
+        a, _, state = part.begin_round(state, k, None)
+        avail.append([True] * W if a is None else a.tolist())
+    flt = strategy.faults
+    crashed = ([crash_mask(flt, k, W).tolist() for k in range(rounds)]
+               if flt.crashy else None)
+    corrupted = ([corruption_mask(flt, k, W).tolist() for k in range(rounds)]
+                 if flt.corrupt_p > 0 else None)
+    return avail, crashed, corrupted
+
+
+def check_robust_events(method, events):
+    """Phase 9: the seeds put the path's events in its rounds."""
+    avail, crashed, corrupted = events
+    if method == "robust_full":
+        warm = set(m for m in range(W) if avail[0][m])
+        ok = (all(not all(a) for a in avail)
+              and any(a and c for k in range(1, len(avail))
+                      for a, c in zip(avail[k], crashed[k]))
+              and any(avail[k][m] and corrupted[k][m] and m in warm
+                      for k in range(1, len(avail)) for m in range(W))
+              and not any(corrupted[0]) and not any(crashed[0]))
+    elif method == "robust_sort":
+        ok = (any(not all(a) for a in avail)
+              and any(a and c for a, c in zip(avail[0], corrupted[0])))
+    else:
+        ok = True
+    if not ok:
+        raise AssertionError(f"{method}: the seeds do not put the path's "
+                             f"events in its rounds: {events}")
+
+
+def robust_small_check(torch, tmpdir):
+    """Phase 3: the participation and robustness layer on small inputs, on
+    the card vs the CPU.  Smoke stablelm (float32, W=4, 4 rounds) under
+    phase 9's three paths and a bernoulli run with undefended NaN
+    corruption, crashes without reconciliation and the median; the 10-worker
+    quadratic of test_engine_parity.py (30 rounds) under each remaining
+    participation mode and corruption kind; ``run_with_watchdog`` with
+    escalation into ``tmpdir``; and a checkpoint resume on the card equal to
+    the unbroken run.  Uploads, bits, rejections and watchdog logs must be
+    equal; losses agree to rtol 1e-4 (NaN where NaN)."""
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.defense import (DefenseConfig, WatchdogConfig,
+                                          run_with_watchdog)
+    from repro_torch.core.engine import (AccumulatingSource, FullBatchSource,
+                                         RoundEngine)
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.models.model import init_params, lm_worker_loss
+
+    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = init_params(0, cfg, device="cpu")
+    corpus = lm_worker_corpus(0, W, 2, 32, cfg.vocab, device="cpu")
+    lm_runs = dict(robust_strategies())
+    lm_runs["bernoulli_nan_median"] = lm_runs["delay"]._replace(
+        participation="bernoulli", participation_p=0.5, participation_seed=2,
+        max_delay=0, faults=FaultConfig(corrupt_p=0.25, corrupt_kind="nan",
+                                        crash_p=0.25, fault_seed=3),
+        defense=DefenseConfig(reconcile_crashes=False), aggregator="median")
+
+    def lm_engine(dev, strategy):
+        src = AccumulatingSource(lm_worker_loss(cfg, W),
+                                 {k: v.to(dev) for k, v in corpus.items()},
+                                 deterministic=True, accum=ACCUM, scale=1.0)
+        return RoundEngine(src, strategy, alpha=SMALL_ALPHA)
+
+    gen = torch.Generator().manual_seed(0)
+    qc = torch.randn(10, 20, generator=gen)
+    qa = 0.5 + torch.rand(10, 20, generator=gen)
+
+    def q_loss(p, data):
+        c, a = data
+        return 0.5 * torch.sum(a * torch.square(p["x"] - c)) / 10
+
+    q_base = dict(kind="laq", bits=4, wire_backend="fused",
+                  criterion=CriterionConfig(D=10, xi=0.08, t_bar=20))
+    q_runs = {
+        "fixed_k_inf_validate": dict(
+            participation="fixed_k", participation_p=0.3,
+            faults=FaultConfig(corrupt_p=0.3, corrupt_kind="inf",
+                               fault_seed=2),
+            defense=DefenseConfig(validate=True)),
+        "bernoulli_sign_flip_gate": dict(
+            participation="bernoulli", participation_p=0.5,
+            faults=FaultConfig(corrupt_p=0.2, corrupt_kind="sign_flip",
+                               fault_seed=2),
+            defense=DefenseConfig(validate=True, gate_mult=4.0)),
+        "markov_bitflip_gate": dict(
+            participation="markov", participation_p=0.7, markov_sojourn=3.0,
+            faults=FaultConfig(corrupt_p=0.3, corrupt_kind="bitflip",
+                               bitflip_frac=0.5, fault_seed=4),
+            defense=DefenseConfig(validate=True, gate_mult=1.5)),
+        "delay_scale_clip_crash": dict(
+            participation="delay", max_delay=2,
+            faults=FaultConfig(corrupt_p=0.25, corrupt_kind="scale",
+                               corrupt_scale=-40.0, crash_p=0.1,
+                               fault_seed=7),
+            defense=DefenseConfig(clip_mult=4.0)),
+        "trimmed_mean_crash_no_reconcile": dict(
+            faults=FaultConfig(corrupt_p=0.15, corrupt_kind="scale",
+                               corrupt_scale=-40.0, crash_p=0.1),
+            defense=DefenseConfig(reconcile_crashes=False),
+            aggregator="trimmed_mean", trim_frac=0.2),
+    }
+
+    def q_engine(dev, kw):
+        return RoundEngine(FullBatchSource(q_loss, (qc.to(dev), qa.to(dev))),
+                           StrategyConfig(**q_base, **kw), alpha=0.3)
+
+    def compare(name, runs):
+        (ca, a), (cb, b) = runs["cuda"], runs["cpu"]
+        ra, rb = ca[1].defense.rejects, cb[1].defense.rejects
+        if not (torch.equal(a.cum_uploads, b.cum_uploads)
+                and torch.equal(a.cum_bits, b.cum_bits)
+                and ((ra is None and rb is None) or torch.equal(ra, rb))):
+            raise AssertionError(
+                f"{name}: uploads/bits/rejections differ card vs CPU: "
+                f"{a.cum_uploads.tolist()} {ra} vs {b.cum_uploads.tolist()} "
+                f"{rb}")
+        if not torch.equal(a.loss.isnan(), b.loss.isnan()):
+            raise AssertionError(f"{name}: NaN losses differ card vs CPU")
+        live = ~b.loss.isnan()
+        rel = (((a.loss - b.loss).abs() / b.loss.abs())[live].max().item()
+               if live.any() else 0.0)
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name}: loss differs card vs CPU by "
+                                 f"{rel:.3e}")
+        log(f"  ok {name}: uploads {a.cum_uploads.tolist()} rejections "
+            f"{None if ra is None else ra.tolist()} equal on card and CPU; "
+            f"loss max rel diff {rel:.3e}")
+
+    for name, strategy in lm_runs.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = lm_engine(dev, strategy)
+            runs[dev] = eng.run_from(eng.init_carry(params, device=dev),
+                                     SMALL_ROBUST_ROUNDS)
+        compare(f"smoke stablelm {name}", runs)
+    for name, kw in q_runs.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = q_engine(dev, kw)
+            runs[dev] = eng.run_from(eng.init_carry(
+                {"x": torch.zeros(20)}, device=dev), 30)
+        compare(f"quadratic {name}", runs)
+
+    logs = {}
+    for dev in ("cpu", "cuda"):
+        def escalate(engine):
+            return RoundEngine(engine.source, engine.cfg._replace(
+                defense=DefenseConfig(validate=True)), alpha=engine.alpha)
+
+        res, wlog, carry = run_with_watchdog(
+            q_engine(dev, dict(faults=FaultConfig(corrupt_p=0.1,
+                                                  corrupt_kind="inf"))),
+            {"x": torch.zeros(20)}, 40,
+            ckpt_path=os.path.join(tmpdir, f"watchdog_{dev}.npz"),
+            wd=WatchdogConfig(chunk=10), escalate=escalate, device=dev)
+        logs[dev] = (wlog, res.cum_bits, carry[1].defense.rejects)
+    (la, ba, ra), (lb, bb, rb) = logs["cuda"], logs["cpu"]
+    if la != lb or not la["rollbacks"] or not torch.equal(ba, bb) \
+            or not torch.equal(ra, rb):
+        raise AssertionError(f"watchdog: card {la} vs CPU {lb}")
+    log(f"  ok run_with_watchdog with escalation: log {la} equal on card "
+        f"and CPU")
+
+    eng = lm_engine("cuda", lm_runs["robust_full"])
+    _, whole = eng.run_from(eng.init_carry(params, device="cuda"),
+                            SMALL_ROBUST_ROUNDS)
+    carry, first = eng.run_from(eng.init_carry(params, device="cuda"), 2)
+    path = os.path.join(tmpdir, "resume.npz")
+    save_checkpoint(path, carry, 2)
+    del carry
+    carry, step = load_checkpoint(path, eng.init_carry(params,
+                                                       device="cuda"))
+    _, second = eng.run_from(carry, SMALL_ROBUST_ROUNDS - 2)
+    for f in ("cum_uploads", "cum_bits", "loss", "quant_err"):
+        if step != 2 or not torch.equal(
+                torch.cat([getattr(first, f), getattr(second, f)]),
+                getattr(whole, f)):
+            raise AssertionError(f"checkpoint resume on the card: {f} "
+                                 f"differs from the unbroken run")
+    log(f"  ok checkpoint resume on the card at round 2 equals the "
+        f"unbroken {SMALL_ROBUST_ROUNDS} rounds")
 
 
 def random_card_check(torch):
@@ -761,6 +1033,7 @@ def _exchange_rank(rank, port, queue):
         import torch
         import torch.distributed as dist
         from repro_torch.configs import get_config
+        from repro_torch.core.defense import DefenseConfig
         from repro_torch.data.synthetic import lm_worker_corpus
         from repro_torch.kernels import ops
         from repro_torch.launch.mesh import init_workers, worker_batch
@@ -779,14 +1052,20 @@ def _exchange_rank(rank, port, queue):
         batch = worker_batch({k: v.reshape((-1,) + tuple(v.shape[2:]))
                               for k, v in corpus.items()}, workers)
         strat = sharded_strategies()["sharded_b4"]
+        defended = strat._replace(**EXCHANGE_DEFENDED,
+                                  defense=DefenseConfig(validate=True,
+                                                        gate_mult=4.0))
         out = {"transport": workers.transport("cuda")}
         final = {}
-        for wire in ("float", "packed"):
+        for label, st, wire in (("float", strat, "float"),
+                                ("packed", strat, "packed"),
+                                ("defended_float", defended, "float"),
+                                ("defended_packed", defended, "packed")):
             for name in SHARDED_KERNELS:
                 getattr(ops, name).launches = 0
             state = init_train_state(init_params(0, cfg, device="cuda"),
-                                     workers, strat, sgd())
-            step = make_train_step(cfg, workers, strat, sgd(),
+                                     workers, st, sgd())
+            step = make_train_step(cfg, workers, st, sgd(),
                                    lr=SHARDED_LR, wire=wire)
             torch.cuda.synchronize()
             rec = []
@@ -796,16 +1075,21 @@ def _exchange_rank(rank, port, queue):
                 torch.cuda.synchronize()
                 rec.append((met.loss.item(), met.uploads, met.bits.item(),
                             (time.perf_counter() - t0) * 1e3))
-            out[wire] = rec
-            out[f"{wire}_launches"] = {name: getattr(ops, name).launches
-                                       for name in SHARDED_KERNELS}
-            out[f"{wire}_peak"] = torch.cuda.max_memory_allocated()
-            final[wire] = [l.cpu() for l in tree_leaves(state.params)]
+            out[label] = rec
+            out[f"{label}_launches"] = {name: getattr(ops, name).launches
+                                        for name in SHARDED_KERNELS}
+            out[f"{label}_peak"] = torch.cuda.max_memory_allocated()
+            rej = state.comm.defense.rejects
+            out[f"{label}_rejects"] = None if rej is None else int(rej[0])
+            final[label] = [l.cpu() for l in tree_leaves(state.params)]
             del state, step
             gc.collect()
             torch.cuda.empty_cache()
         out["params_bitwise"] = all(
             torch.equal(a, b) for a, b in zip(final["float"], final["packed"]))
+        out["defended_params_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(final["defended_float"],
+                                              final["defended_packed"]))
         out["n_params"] = sum(t.numel() for t in final["float"])
         dist.destroy_process_group()
         queue.put((rank, out))
@@ -857,21 +1141,26 @@ def exchange_on_card(torch):
                 p.kill()
                 p.join(10)
     for rank, out in sorted(results.items()):
-        if not out["params_bitwise"]:
-            raise AssertionError(f"phase 6 rank {rank}: float and packed "
-                                 "wires gave different parameters")
-        for a, b in zip(out["float"], out["packed"]):
-            if a[1:3] != b[1:3]:
-                raise AssertionError(f"phase 6 rank {rank}: uploads/bits "
-                                     f"differ between wires: {a} vs {b}")
+        for pre in ("", "defended_"):
+            if not out[f"{pre}params_bitwise"]:
+                raise AssertionError(f"phase 6 rank {rank}: {pre}float and "
+                                     f"{pre}packed wires gave different "
+                                     "parameters")
+            for a, b in zip(out[f"{pre}float"], out[f"{pre}packed"]):
+                if a[1:3] != b[1:3]:
+                    raise AssertionError(
+                        f"phase 6 rank {rank}: uploads/bits differ between "
+                        f"the {pre}wires: {a} vs {b}")
         log(f"  rank {rank}: transport {out['transport']}; float steps "
             f"(loss, uploads, bits, ms) {out['float']}; packed "
-            f"{out['packed']}; peak {out['packed_peak'] / 1e9:.2f} GB; "
-            f"params bitwise equal between the wires "
-            f"({out['n_params']} params)")
+            f"{out['packed']}; defended float {out['defended_float']}; "
+            f"defended packed {out['defended_packed']} (rejections "
+            f"{out['defended_packed_rejects']}); peak "
+            f"{out['packed_peak'] / 1e9:.2f} GB; params bitwise equal "
+            f"between the wires ({out['n_params']} params)")
     first = results[0]
     for rank, out in results.items():       # global sums: one value on all
-        for wire in ("float", "packed"):
+        for wire in ("float", "packed", "defended_float", "defended_packed"):
             if [r[1:3] for r in out[wire]] != [r[1:3] for r in first[wire]]:
                 raise AssertionError(f"phase 6: rank {rank}'s uploads/bits "
                                      f"differ from rank 0's ({wire} wire)")
@@ -879,10 +1168,11 @@ def exchange_on_card(torch):
             "quantize_pack_fused": 12 * SHARDED_STEPS,
             "quantize_codes_fused": 12 * SHARDED_STEPS}
     for rank, out in results.items():
-        got = out["packed_launches"]
-        if any(got[k] != v for k, v in want.items()):
-            raise AssertionError(f"phase 6 rank {rank}: packed-wire launches "
-                                 f"{got}, expected {want}")
+        for label in ("packed", "defended_packed"):
+            got = out[f"{label}_launches"]
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"phase 6 rank {rank}: {label} wire "
+                                     f"launches {got}, expected {want}")
     return first
 
 
@@ -911,19 +1201,23 @@ KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
            "quantize_codes_adaptive", "dequant_acc")
 
 
-def run_path(torch, ops, method, cfg, rounds, *, stochastic=False):
+def run_path(torch, ops, method, cfg, rounds, *, stochastic=False,
+             strategy=None, uploads1=W, phase=None):
     """One path at full width: fresh params and engine, the launch counters
     zeroed just before the rounds and read just after.  Returns the
-    counters, the per-round records, round ms and peak bytes.  A
-    stochastic path (phase 8) draws ``STOCH_BATCH`` of its workers'
-    ``STOCH_N_LOCAL`` sequences each round."""
+    counters, the per-round records, round ms, peak bytes and the final
+    reject ledger (None without a defense).  A stochastic path (phase 8)
+    draws ``STOCH_BATCH`` of its workers' ``STOCH_N_LOCAL`` sequences each
+    round.  ``strategy`` overrides the method's own (phase 9), and
+    ``uploads1`` is the number of workers that must upload in round 1."""
     from repro_torch.core.engine import AccumulatingSource, RoundEngine
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.models.config import n_params
     from repro_torch.models.model import init_params, lm_worker_loss
 
     n_local = STOCH_N_LOCAL if stochastic else N_LOCAL
-    log(f"phase {8 if stochastic else 4}: {method}, stablelm-1.6b at "
+    phase = phase or (8 if stochastic else 4)
+    log(f"phase {phase}: {method}, stablelm-1.6b at "
         f"{cfg.n_layers} layers (P={n_params(cfg)}), W={W}, {n_local}x{SEQ} "
         f"tokens per worker, accum={ACCUM}, alpha={ALPHA}, fused wire")
     corpus = lm_worker_corpus(0, W, n_local, SEQ, cfg.vocab, device="cuda")
@@ -931,14 +1225,14 @@ def run_path(torch, ops, method, cfg, rounds, *, stochastic=False):
         source = AccumulatingSource(lm_worker_loss(cfg, W), corpus,
                                     batch=STOCH_BATCH, seed=0, accum=ACCUM,
                                     scale=1.0)
-        strategy = stochastic_strategies()[method]
+        strategy = strategy or stochastic_strategies()[method]
         log(f"  round-1 sampled indices per worker: "
             f"{source.indices(0).tolist()}")
     else:
         source = AccumulatingSource(lm_worker_loss(cfg, W), corpus,
                                     deterministic=True, accum=ACCUM,
                                     scale=1.0)
-        strategy = strategies()[method]
+        strategy = strategy or strategies()[method]
     engine = RoundEngine(source, strategy, alpha=ALPHA)
     carry = engine.init_carry(init_params(0, cfg, device="cuda"),
                               device="cuda")
@@ -964,6 +1258,8 @@ def run_path(torch, ops, method, cfg, rounds, *, stochastic=False):
     launches = {name: getattr(ops, name).launches for name in KERNELS}
     launches["adaptive_by_width"] = dict(
         ops.quantize_pack_adaptive.launches_by_width)
+    rejects = carry[1].defense.rejects
+    rejects = None if rejects is None else rejects.tolist()
     del carry, engine, corpus, source
     gc.collect()
     torch.cuda.empty_cache()
@@ -971,12 +1267,13 @@ def run_path(torch, ops, method, cfg, rounds, *, stochastic=False):
 
     if not all(math.isfinite(r[0].item()) for r in recs):
         raise AssertionError(f"{method}: non-finite loss")
-    if recs[0][2] != W:
-        raise AssertionError(f"{method}: round 1 uploads {recs[0][2]} != W={W}")
+    if recs[0][2] != uploads1:
+        raise AssertionError(f"{method}: round 1 uploads {recs[0][2]} != "
+                             f"{uploads1}")
     if max(peaks) >= PEAK_LIMIT:
         raise AssertionError(f"{method}: peak allocation {max(peaks)} B >= "
                              f"{PEAK_LIMIT:.0f} B")
-    return launches, recs, round_ms, peaks
+    return launches, recs, round_ms, peaks, rejects
 
 
 def expect_launches(method, launches, want):
@@ -1054,6 +1351,8 @@ def main() -> int:
     small_slice_check(torch, ops)
     random_card_check(torch)
     stochastic_small_check(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        robust_small_check(torch, tmpdir)
 
     paths = {
         "laq": (cfg, {"absmax": 1, "quantize_pack_fused": 1}),
@@ -1063,8 +1362,8 @@ def main() -> int:
     by_path = {}
     for method, (pcfg, per) in paths.items():
         rounds = PATH_ROUNDS[method]
-        launches, recs, round_ms, peaks = run_path(torch, ops, method, pcfg,
-                                                   rounds)
+        launches, recs, round_ms, peaks, _ = run_path(torch, ops, method,
+                                                      pcfg, rounds)
         per_round = 1 if method == "ef_topk" else len(shapes)
         expect_launches(method, launches,
                         {k: rounds * W * per_round * v for k, v in per.items()})
@@ -1117,8 +1416,12 @@ def main() -> int:
     ex = exchange_on_card(torch)
     by_path["exchange_w4_packed"] = {k: ex["packed_launches"].get(k, 0)
                                      for k in KERNELS}
+    by_path["exchange_w4_defended_packed"] = {
+        k: ex["defended_packed_launches"].get(k, 0) for k in KERNELS}
     log(f"  ok: float and packed wires give bitwise-equal parameters on "
-        f"every rank; uploads/bits per step {[r[1:3] for r in ex['packed']]}")
+        f"every rank, without and with bernoulli participation and the "
+        f"defense; uploads/bits per step {[r[1:3] for r in ex['packed']]}, "
+        f"defended {[r[1:3] for r in ex['defended_packed']]}")
 
     log("phase 7: benchmarks_torch/bits_sweep.py")
     sweep_launches, _ = run_bits_sweep(torch, ops)
@@ -1128,7 +1431,7 @@ def main() -> int:
 
     for method, layers in STOCH_LAYERS.items():
         pcfg = dataclasses.replace(cfg, n_layers=layers)
-        launches, recs, round_ms, peaks = run_path(
+        launches, recs, round_ms, peaks, _ = run_path(
             torch, ops, method, pcfg, STOCH_ROUNDS, stochastic=True)
         per_round = W * len(shapes)
         expect_launches(method, launches, {
@@ -1139,6 +1442,32 @@ def main() -> int:
             f"uploads {W}, uploads by round "
             f"{[b[2] - a[2] for a, b in zip([(0, 0, 0)] + recs, recs)]}; "
             f"round ms {[round(x, 1) for x in round_ms]}, max peak "
+            f"{max(peaks) / 1e9:.2f} GB")
+
+    robust = robust_strategies()
+    for method, layers in ROBUST_LAYERS.items():
+        strategy = robust[method]
+        events = robust_events(method, strategy, ROBUST_ROUNDS)
+        check_robust_events(method, events)
+        log(f"phase 9: {method}: seeds {ROBUST_SEEDS.get(method, {})}; per "
+            f"round available {events[0]}, crashed {events[1]}, corrupted "
+            f"{events[2]}")
+        pcfg = dataclasses.replace(cfg, n_layers=layers)
+        launches, recs, round_ms, peaks, rejects = run_path(
+            torch, ops, method, pcfg, ROBUST_ROUNDS, strategy=strategy,
+            uploads1=sum(events[0][0]), phase=9)
+        per_round = W * len(shapes)
+        expect_launches(method, launches, {
+            "absmax": ROBUST_ROUNDS * per_round,
+            "quantize_pack_fused": ROBUST_ROUNDS * per_round})
+        if method == "robust_full" and not sum(rejects):
+            raise AssertionError(f"{method}: the corrupted upload of round 3 "
+                                 f"was not rejected: {rejects}")
+        by_path[method] = launches
+        log(f"  ok {method}: launches {launches}, losses finite, uploads "
+            f"by round {[b[2] - a[2] for a, b in zip([(0, 0, 0)] + recs, recs)]}"
+            f", rejections per worker {rejects}; round ms "
+            f"{[round(x, 1) for x in round_ms]}, max peak "
             f"{max(peaks) / 1e9:.2f} GB")
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"

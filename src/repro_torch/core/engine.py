@@ -21,6 +21,21 @@ of each worker's last upload); SVRG W full local gradients ``mu`` and the
 anchor iterate, which the W workers share; the worker in hand then also
 holds its correction and, under ``lasg_wk2``, its stale gradient.
 
+Participation models (:func:`make_participation`): ``full``, ``bernoulli``
+and ``fixed_k`` client sampling (:func:`participation_mask`), ``markov``
+churn (a per-worker on/off chain) and ``delay`` (worker m computes at the
+iterate of ``m mod (max_delay + 1)`` rounds ago; the ring holds references
+to earlier iterates, which the engine never updates in place, not copies).
+An unreachable worker still computes its gradient and its wire, as the
+reference's vmap does, and is masked like a lazy skip.  The robustness
+layer (:mod:`repro_torch.core.faults`, :mod:`repro_torch.core.defense`)
+runs in the reference's order: crash-restart before the SVRG and WK2
+stages, gradient corruption after them (the worker's honest gradient
+enters ``grad_norm_sq`` first), wire bit flips and the defense inside
+``worker_update``.  Crash reconciliation adds one leaf-sized transient; a
+robust aggregator holds the W committed deltas in place of the running
+sum.
+
 Gradient sources: :class:`FullBatchSource` (paper Table 2),
 :class:`MinibatchSource` (paper Table 3) and :class:`AccumulatingSource`
 (the LM worker, stochastic or ``deterministic=True``).  Their minibatches
@@ -39,9 +54,12 @@ from ..device import resolve_device
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .adaptive import eta_at
 from .compressors import qsgd_compress, ssgd_compress
+from .faults import (apply_crashes, bitflip_keys, corrupt_grad,
+                     corruption_mask, crash_mask)
 from .quantize import dense_bits, fma_f32, tree_sq_norm
-from .strategy import (CommState, StrategyConfig, SvrgState, aggregate,
-                       check_supported, finalize_step, init_comm_state)
+from .strategy import (PARTICIPATION, CommState, StrategyConfig, SvrgState,
+                       aggregate, check_supported, finalize_step,
+                       init_comm_state)
 
 F32 = torch.float32
 
@@ -365,6 +383,35 @@ def stale_side_grads(grad_at_raw, theta_last_m, corr_m, scale: float):
     return tree_map(lambda x: x * scale, gs)
 
 
+def participation_mask(cfg: StrategyConfig, step: int, n_workers: int):
+    """[W] bool CPU availability mask of round ``step``, or ``None`` for
+    the modes that never mask (``full``, ``delay``).
+
+    Deterministic in ``(participation_seed, step)`` and independent of the
+    batch and compressor streams, so the engine and every rank of the
+    sharded step draw the same cohort.  ``bernoulli`` keeps each worker
+    with probability ``participation_p``; ``fixed_k`` keeps exactly
+    ``max(1, round(p * W))``: the k lowest of W uniform scores."""
+    if cfg.participation in ("full", "delay"):
+        return None
+    key = random.fold_in(random.PRNGKey(cfg.participation_seed,
+                                        device="cpu"), int(step))
+    if cfg.participation == "bernoulli":
+        return random.bernoulli(key, cfg.participation_p, (n_workers,))
+    if cfg.participation == "fixed_k":
+        k = max(1, int(round(cfg.participation_p * n_workers)))
+        scores = random.uniform(key, (n_workers,))
+        return scores <= torch.sort(scores).values[k - 1]
+    if cfg.participation == "markov":
+        raise ValueError(
+            "markov churn is stateful (the chain carries the on/off state "
+            "between rounds) -- it has no stateless mask; use "
+            "MarkovParticipation via make_participation (simulated engine "
+            "only)")
+    raise ValueError(f"unknown participation {cfg.participation!r}; "
+                     f"have {PARTICIPATION}")
+
+
 class FullParticipation:
     """Every worker reachable every round (the paper's setting)."""
 
@@ -372,28 +419,137 @@ class FullParticipation:
         return None
 
     def begin_round(self, pstate, step, params):
-        """``(avail, thetas_w, pstate)``: all available, current params."""
+        """``(avail, thetas_w, pstate)``: ``avail`` the [W] bool mask (None:
+        all available), ``thetas_w`` the W evaluation iterates (None: the
+        current params)."""
         return None, None, pstate
 
 
+class SampledParticipation:
+    """Bernoulli / fixed-k client sampling (:func:`participation_mask`)."""
+
+    def __init__(self, cfg: StrategyConfig, n_workers: int):
+        if not 0.0 < cfg.participation_p <= 1.0:
+            raise ValueError(f"participation_p {cfg.participation_p} not in "
+                             f"(0, 1]")
+        self.cfg = cfg
+        self.n_workers = n_workers
+
+    def init(self, params0):
+        return None
+
+    def begin_round(self, pstate, step, params):
+        return participation_mask(self.cfg, step, self.n_workers), None, pstate
+
+
+class MarkovParticipation:
+    """Bursty on/off availability: a per-worker two-state Markov chain with
+    ``P(on -> off) = 1 / sojourn`` and ``P(off -> on) = p_down p / (1 -
+    p)``, so the stationary availability is ``participation_p`` and the
+    mean ON streak ``markov_sojourn`` rounds.  The initial state is drawn
+    from the stationary law on stream 1 of ``PRNGKey(participation_seed)``,
+    the transitions on stream 0.  ``p_down`` and ``p_up`` are doubles
+    compared with float32 uniforms in float32, as JAX's weak types
+    compare them.  The state is a [W] bool CPU tensor."""
+
+    def __init__(self, cfg: StrategyConfig, n_workers: int):
+        p = cfg.participation_p
+        if not 0.0 < p < 1.0:
+            raise ValueError(f"markov participation_p {p} not in (0, 1)")
+        if not cfg.markov_sojourn >= 1.0:
+            raise ValueError(f"markov_sojourn {cfg.markov_sojourn} < 1")
+        self.p = p
+        self.p_down = min(1.0, 1.0 / cfg.markov_sojourn)
+        self.p_up = min(1.0, self.p_down * p / (1.0 - p))
+        self.n_workers = n_workers
+        self._key0 = random.PRNGKey(cfg.participation_seed, device="cpu")
+
+    def init(self, params0):
+        return random.bernoulli(random.fold_in(self._key0, 1), self.p,
+                                (self.n_workers,))
+
+    def begin_round(self, on, step, params):
+        u = random.uniform(random.fold_in(random.fold_in(self._key0, 0),
+                                          int(step)), (self.n_workers,))
+        on = torch.where(on, u >= torch.tensor(self.p_down, dtype=F32),
+                         u < torch.tensor(self.p_up, dtype=F32))
+        return on, None, on
+
+
+class DelayedParticipation:
+    """Bounded-delay asynchronous workers: worker m has the staleness
+    ``d_m = m mod (max_delay + 1)`` and computes this round's gradient at
+    ``theta^{k - d_m}``.  The state is a ring of ``max_delay + 1`` iterates
+    (references: the engine never updates an iterate in place), pushed at
+    round start; every worker stays reachable."""
+
+    def __init__(self, max_delay: int, n_workers: int):
+        if max_delay < 1:
+            raise ValueError("use participation='full' for max_delay=0")
+        self.length = max_delay + 1
+        self.delays = [m % self.length for m in range(n_workers)]
+
+    def init(self, params0):
+        return [params0] * self.length
+
+    def begin_round(self, hist, step, params):
+        # hist[d] = theta^{k-d} after the push (index 0 = current round)
+        hist = [params] + list(hist[:-1])
+        return None, [hist[d] for d in self.delays], hist
+
+
+def make_participation(cfg: StrategyConfig, n_workers: int):
+    """Participation model for ``cfg``, normalizing the degenerate knobs as
+    the reference does: ``delay`` with ``max_delay=0``, ``bernoulli`` and
+    ``markov`` with ``p >= 1`` and a ``fixed_k`` cohort of all W workers
+    are full participation."""
+    if cfg.participation not in PARTICIPATION:
+        raise ValueError(f"unknown participation {cfg.participation!r}; "
+                         f"have {PARTICIPATION}")
+    if cfg.participation == "delay":
+        if cfg.max_delay < 0:
+            raise ValueError(f"max_delay {cfg.max_delay} < 0")
+        if cfg.max_delay == 0:
+            return FullParticipation()
+        return DelayedParticipation(cfg.max_delay, n_workers)
+    if cfg.participation in ("bernoulli", "fixed_k"):
+        if cfg.participation_p >= 1.0 and cfg.participation != "fixed_k":
+            return FullParticipation()
+        if cfg.participation == "fixed_k" and \
+                max(1, int(round(cfg.participation_p * n_workers))) == n_workers:
+            return FullParticipation()
+        return SampledParticipation(cfg, n_workers)
+    if cfg.participation == "markov":
+        if cfg.participation_p >= 1.0:
+            return FullParticipation()
+        return MarkovParticipation(cfg, n_workers)
+    return FullParticipation()
+
+
 class RoundEngine:
-    """One communication round, sources and state machine plugged in (full
-    participation: the other participation models are not ported).
+    """One communication round, sources, participation and the state
+    machine plugged in.
 
     ``baseline`` selects a dense baseline of paper Table 3 instead of the
     LAQ state machine: ``"sgd"``, ``"qsgd"`` at ``bits`` or ``"ssgd"`` at
     ``density`` (``CommState`` is then bookkeeping only; a stochastic
     source is required, whose stream 1 keys the compressors, and the
-    criterion's ``theta_hist`` is not kept)."""
+    criterion's ``theta_hist`` is not kept).  ``participation`` overrides
+    the model :func:`make_participation` builds from ``cfg``."""
 
     def __init__(self, source, cfg: StrategyConfig, *, alpha,
                  baseline: Optional[str] = None, bits: int = 3,
-                 density: float = 0.1):
+                 density: float = 0.1, participation=None):
         if baseline not in (None, "sgd", "qsgd", "ssgd"):
             raise ValueError(f"unknown baseline {baseline!r}")
         if baseline is not None and not source.stochastic:
             raise ValueError("dense baselines need a stochastic source "
                              "(their compressor keys come from its stream 1)")
+        if baseline is not None and cfg.faults.active:
+            raise ValueError("fault injection targets the LAQ state machine "
+                             "(qhat / clocks / estimator state); the dense "
+                             "baselines carry none of it -- run them with "
+                             "faults off")
         check_supported(cfg)
         self.source = source
         self.cfg = cfg
@@ -402,7 +558,8 @@ class RoundEngine:
         self.bits = bits
         self.density = density
         self.n_workers = source.n_workers
-        self.participation = FullParticipation()
+        self.participation = (participation if participation is not None
+                              else make_participation(cfg, self.n_workers))
         self.wk2 = (baseline is None and cfg.lazy
                     and cfg.lazy_rule == "lasg_wk2")
 
@@ -418,13 +575,27 @@ class RoundEngine:
         ``(loss, grad_norm_sq, total_uploads, total_bits, quant_err,
         mean_bits)``.  The carry's per-worker lists and ``server_agg`` are
         updated in place (see :func:`aggregate`)."""
-        cfg, source = self.cfg, self.source
+        cfg, source, W = self.cfg, self.source, self.n_workers
         params, cst, pstate = carry
         alpha_k = eta_at(cfg.eta_schedule, self.alpha, cst.step)
-        _, _, pstate = self.participation.begin_round(pstate, cst.step,
-                                                      params)
+        avail, thetas_w, pstate = self.participation.begin_round(
+            pstate, cst.step, params)
         loss = source.global_loss(params)
         batches = source.sample(cst.step)
+        flt = cfg.faults
+        crashed = None
+        if flt.crashy:
+            # crash-restart before the svrg / wk2 stages: the restarted
+            # worker's fresh anchors are what this round computes against
+            crashed = crash_mask(flt, cst.step, W)
+            cst = apply_crashes(cst, crashed, params, cfg,
+                                reconcile=cfg.defense.reconcile_crashes)
+        corrupt = (corruption_mask(flt, cst.step, W) if flt.grad_faulty
+                   else None)
+        fault_flip = fault_keys = None
+        if flt.wire_faulty:
+            fault_flip = corruption_mask(flt, cst.step, W)
+            fault_keys = bitflip_keys(flt, cst.step, W)
         gsum = (None if source.stochastic else
                 tree_map(lambda l: torch.zeros(l.shape, dtype=F32,
                                                device=l.device), params))
@@ -437,17 +608,31 @@ class RoundEngine:
                                                 scaled=False)
 
         def grad_of(m):
+            theta_m = params if thetas_w is None else thetas_w[m]
             if svrg:
+                raw = grad_at_raw(m)(theta_m)
+                if crashed is not None and bool(crashed[m]) and not refresh:
+                    # the restarted anchor's mu: this round's gradient
+                    cst.svrg.mu_anchor[m] = tree_map(
+                        lambda x: (x * source.scale if source.scale != 1.0
+                                   else x.clone()), raw)
                 g, c = apply_svrg_exact(
-                    cst.svrg, params, grad_at_raw(m)(params), grad_at_raw(m),
+                    cst.svrg, params, raw, grad_at_raw(m),
                     source.full_local_grads, m, refresh, source.scale)
+                del raw
                 if self.wk2:
                     corr[m] = c
-                return g
-            g = source.grad_at(params, batches, m)
+            else:
+                g = source.grad_at(theta_m, batches, m)
             if gsum is not None:
+                # the record takes the honest gradient, before corruption
                 for a, x in zip(tree_leaves(gsum), tree_leaves(g)):
                     a.add_(x)
+            if corrupt is not None:
+                # payload corruption after the svrg / wk2 stages: the fault
+                # hits what the worker ships, not its local computation
+                g = (corrupt_grad(g, flt, inplace=True) if bool(corrupt[m])
+                     else tree_map(lambda x: x.to(F32), g))
             return g
 
         def stale_of(m):
@@ -457,12 +642,13 @@ class RoundEngine:
         if self.baseline is None:
             agg, cst, metrics = aggregate(
                 cst, grad_of, alpha_k, cfg, params=params,
-                stale_of=stale_of if self.wk2 else None)
+                stale_of=stale_of if self.wk2 else None, avail=avail,
+                fault_flip=fault_flip, fault_keys=fault_keys)
             qe, mb = metrics.radius_max, metrics.mean_bits
         else:
-            agg, cst, qe, mb = self._baseline_round(cst, grad_of,
-                                                    sum(l.numel() for l in
-                                                        tree_leaves(params)))
+            agg, cst, qe, mb = self._baseline_round(
+                cst, grad_of, sum(l.numel() for l in tree_leaves(params)),
+                avail)
         # the summed full local gradients ARE the global gradient; a
         # stochastic source takes its own full-data backprop, now that the
         # workers' gradients are freed
@@ -489,10 +675,11 @@ class RoundEngine:
                qe, mb)
         return (new_params, cst, pstate), rec
 
-    def _baseline_round(self, cst: CommState, grad_of, p: int):
-        """Dense-baseline aggregation: every worker uploads its compressed
-        gradient, summed in worker order; no server recursion, no skip
-        state.  ``mean_bits`` is the mean wire bits per coordinate."""
+    def _baseline_round(self, cst: CommState, grad_of, p: int, avail):
+        """Dense-baseline aggregation: every available worker uploads its
+        compressed gradient, summed in worker order; no server recursion,
+        no skip state.  ``mean_bits`` is the mean wire bits per coordinate
+        over the available workers."""
         keys = self.source.stream_keys(1, cst.step)
         agg, bits_m = None, []
         for m in range(self.n_workers):
@@ -506,18 +693,29 @@ class RoundEngine:
             del g
             if agg is None:
                 agg = tree_map(torch.zeros_like, c)
-            for a, x in zip(tree_leaves(agg), tree_leaves(c)):
-                a.add_(x)
+            keep = avail is None or bool(avail[m])
+            if keep:
+                # an absent worker's masked upload adds an exact zero
+                for a, x in zip(tree_leaves(agg), tree_leaves(c)):
+                    a.add_(x)
             del c
-            bits_m.append(b)
+            bits_m.append(b.to(F32) if keep else torch.zeros((), dtype=F32))
         bits_m = torch.stack(bits_m)
-        # jnp.mean(bits) / p under jit: XLA multiplies by the product of
-        # the two reciprocals, folded in float32
-        inv = (torch.tensor(1.0 / self.n_workers, dtype=F32)
-               * torch.tensor(1.0 / p, dtype=F32))
-        mb = bits_m.sum() * inv
+        if avail is None:
+            n_up = self.n_workers
+            # jnp.mean(bits) / p under jit: XLA multiplies by the product
+            # of the two reciprocals, folded in float32
+            inv = (torch.tensor(1.0 / self.n_workers, dtype=F32)
+                   * torch.tensor(1.0 / p, dtype=F32))
+            mb = bits_m.sum() * inv
+        else:
+            n_up = int(sum(bool(a) for a in avail))
+            # sum(bits) / max(sum(keep), 1) / p: two true divisions under
+            # jit (XLA folds a reciprocal only for a constant divisor)
+            mb = (bits_m.sum() / torch.tensor(float(max(n_up, 1)), dtype=F32)
+                  / torch.tensor(float(p), dtype=F32))
         cst = cst._replace(total_bits=cst.total_bits + bits_m.sum(),
-                           total_uploads=cst.total_uploads + self.n_workers,
+                           total_uploads=cst.total_uploads + n_up,
                            step=cst.step + 1)
         return agg, cst, torch.zeros((), dtype=F32), mb
 

@@ -17,15 +17,26 @@ committed instead of being selected against zeros.
 
 Ported branches of ``worker_update``: dense (gd/lag), fixed-width
 quantized, adaptive width (A-LAQ, ``bit_schedule``), the sparse top-k and
-rand-k wires (``compressor``), error feedback (``error_feedback``), and
-the four skip rules (``lazy_rule``: the paper's 7a and the LASG rules of
+rand-k wires (``compressor``), error feedback (``error_feedback``), the
+four skip rules (``lazy_rule``: the paper's 7a and the LASG rules of
 :mod:`repro_torch.core.lazy_rules`, whose per-worker state rides in
-``CommState.lazy``).  ``CommState.svrg`` holds the SVRG anchors that the
-engine corrects stochastic gradients with (``grad_mode="svrg"``).  Features
-of the reference state machine that are not ported yet (participation,
-faults and defenses, robust aggregators, bf16 state) raise
-``NotImplementedError`` from :func:`check_supported`, naming their ROADMAP
-item.
+``CommState.lazy``), participation (``avail_m``: an unreachable worker is
+masked like a lazy skip), wire-code bit flips (``flip_m``) and the
+server-side defense (``defense_m``: validation, norm gate and clip; a
+rejected upload is masked like a skip and still pays its bits).
+``CommState.svrg`` holds the SVRG anchors that the engine corrects
+stochastic gradients with (``grad_mode="svrg"``), ``CommState.defense``
+the defense's per-worker state, and :func:`aggregate` combines the
+committed deltas by the paper's sum or a robust aggregator
+(:func:`repro_torch.core.defense.robust_aggregate`).  bfloat16 state
+(``state_bf16``) is not ported and raises ``NotImplementedError`` from
+:func:`check_supported`, naming its ROADMAP item.
+
+An unreachable worker still computes its gradient and its wire, as in the
+reference (whose vmap runs every lane): its radius enters
+``radius_max``.  Its skip rule is not evaluated (the reference discards
+that decision and holds the rule's state), so the in-place estimator
+updates of ``lasg_wk`` do not touch a held worker.
 """
 from __future__ import annotations
 
@@ -38,6 +49,10 @@ from .adaptive import BitSchedule, EtaSchedule, select_bits
 from .compressors import (COMPRESSORS, ErrorState, compressor_keys,
                           init_error_state, static_k)
 from .criterion import CriterionConfig, push_history, should_skip
+from .defense import (AGGREGATORS, DefenseConfig, DefenseState,
+                      defense_slice, defense_step, empty_defense_state,
+                      init_defense_state, robust_aggregate)
+from .faults import CORRUPT_KINDS, FaultConfig, flip_wire_codes
 from .lazy_rules import (LAZY_RULES, LasgConfig, LazyState, commit_upload,
                          empty_lazy_state, init_lazy_state, lazy_rule_step,
                          store_slice, worker_slice)
@@ -47,12 +62,13 @@ from .wire import get_backend, sparse_roundtrip
 
 F32 = torch.float32
 KINDS = ("gd", "qgd", "lag", "laq")
+PARTICIPATION = ("full", "bernoulli", "fixed_k", "markov", "delay")
+_SQ_CHUNK = 1 << 24     # elements per pass of _sq_norm_diff
 
 
 class StrategyConfig(NamedTuple):
-    """Every field of the reference ``StrategyConfig``.  Fields whose
-    feature is not ported keep their reference defaults (or ``None`` for
-    nested configs of unported modules); switching one on raises."""
+    """Every field of the reference ``StrategyConfig``, with its
+    defaults."""
     kind: str = "laq"               # one of KINDS
     bits: int = 4                   # quantization bits per coordinate
     criterion: CriterionConfig = CriterionConfig()
@@ -67,20 +83,26 @@ class StrategyConfig(NamedTuple):
                                     # gradients (CommState.svrg anchors)
     svrg_period: int = 20           # rounds between svrg anchor refreshes
     eta_schedule: EtaSchedule = EtaSchedule()  # per-round stepsize alpha_k
-    participation: str = "full"     # only "full" is ported
-    participation_p: float = 1.0
-    max_delay: int = 0
-    participation_seed: int = 0
+    participation: str = "full"     # one of PARTICIPATION (core/engine.py):
+                                    # "bernoulli" / "fixed_k" sampling,
+                                    # "markov" churn, "delay" staleness
+    participation_p: float = 1.0    # keep probability / cohort fraction
+    max_delay: int = 0              # "delay": worker m at theta^{k - m mod
+                                    # (D + 1)}
+    participation_seed: int = 0     # seed of the availability stream
     compressor: str = "none"        # "topk" / "randk" sparse wire
     compressor_k: float = 0.25      # kept fraction, k = static_k(frac, p)
     error_feedback: bool = False    # EF-LAQ residual in CommState.error
     ef_damping: float = 0.5         # g_eff = g + eta * e
     compressor_seed: int = 0
-    markov_sojourn: float = 8.0
-    faults: Optional[object] = None   # fault injection (not ported)
-    defense: Optional[object] = None  # server-side validation (not ported)
-    aggregator: str = "sum"         # only the paper's sum recursion is ported
-    trim_frac: float = 0.1
+    markov_sojourn: float = 8.0     # "markov": mean ON-streak in rounds
+    faults: FaultConfig = FaultConfig()  # fault injection (core/faults.py)
+    defense: DefenseConfig = DefenseConfig()  # validation / gate / clip /
+                                    # crash reconciliation (core/defense.py)
+    aggregator: str = "sum"         # one of AGGREGATORS: the paper's sum or
+                                    # a coordinate-wise trimmed mean / median
+    trim_frac: float = 0.1          # "trimmed_mean": fraction trimmed at
+                                    # each end (t = floor(f * W), min 1)
 
     @property
     def quantized(self) -> bool:
@@ -128,17 +150,24 @@ def check_supported(cfg: StrategyConfig):
                          f"{LAZY_RULES}")
     if cfg.grad_mode not in ("sgd", "svrg"):
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
-    gated = [
-        (cfg.participation != "full", "Participation"),
-        (cfg.faults is not None or cfg.defense is not None, "Robustness"),
-        (cfg.aggregator != "sum", "Robustness"),
-        (cfg.state_bf16, "LM workload"),
-    ]
-    for on, item in gated:
-        if on:
-            raise NotImplementedError(
-                f"{cfg} switches on a feature that is not ported yet "
-                f"(ROADMAP.md queue 1: {item})")
+    if cfg.participation not in PARTICIPATION:
+        raise ValueError(f"unknown participation {cfg.participation!r}; "
+                         f"have {PARTICIPATION}")
+    if cfg.aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {cfg.aggregator!r}; have "
+                         f"{AGGREGATORS}")
+    if cfg.faults.corrupt_kind not in CORRUPT_KINDS:
+        raise ValueError(f"unknown corrupt_kind {cfg.faults.corrupt_kind!r}; "
+                         f"have {CORRUPT_KINDS}")
+    if cfg.faults.wire_faulty and not (cfg.quantized and not cfg.adaptive
+                                       and not cfg.compressed):
+        raise ValueError("wire-code bit-flips model the packed fixed-bit "
+                         "payload: they need a fixed-bit quantized kind (qgd "
+                         "/ laq) without the sparse compressor pipeline")
+    if cfg.state_bf16:
+        raise NotImplementedError(
+            f"{cfg} switches on a feature that is not ported yet "
+            f"(ROADMAP.md queue 1: LM workload)")
 
 
 class SvrgState(NamedTuple):
@@ -188,6 +217,8 @@ class CommState(NamedTuple):
     R_anchor: torch.Tensor  # [W] anchor radius of the "rel" adaptive thresholds
     svrg: SvrgState         # per-worker SVRG anchors (grad_mode="svrg")
     error: ErrorState = ErrorState(None)  # [W] EF residuals (error_feedback)
+    defense: DefenseState = DefenseState(None, None, None)  # [W] validation
+                            # state and reject ledger (DefenseConfig.active)
 
 
 class RoundMetrics(NamedTuple):
@@ -196,6 +227,7 @@ class RoundMetrics(NamedTuple):
     mean_skip: float        # fraction of workers skipping
     radius_max: torch.Tensor  # max_m R_m^k (0 for unquantized)
     mean_bits: torch.Tensor  # mean width over uploading workers
+    rejections: int = 0     # transmissions the server refused to commit
 
 
 def init_comm_state(grad_template, n_workers: int,
@@ -225,6 +257,7 @@ def init_comm_state(grad_template, n_workers: int,
         R_anchor=torch.zeros(n_workers, dtype=F32),
         svrg=init_svrg_state(cfg.grad_mode, grad_template, n_workers),
         error=init_error_state(cfg.error_feedback, grad_template, n_workers),
+        defense=init_defense_state(cfg.defense, n_workers),
     )
 
 
@@ -236,36 +269,79 @@ class WorkerOut(NamedTuple):
     qhat_new: object
     eps_hat_sq_new: torch.Tensor
     clock_new: int
-    uploaded: bool          # the worker sent a payload
+    uploaded: bool          # the worker sent a payload (pays bits)
     bits_m: torch.Tensor    # float32 wire bits of this worker this round
     R: torch.Tensor         # max leaf radius (0 for unquantized)
     width_m: float          # width this round, 32 for dense uploads
-    committed: bool         # the server applied the payload (== uploaded)
+    committed: bool         # the server applied the payload (uploaded and
+                            # not rejected by the defense)
     R_anchor_new: torch.Tensor  # updated "rel" threshold anchor
     error_new: object = None    # the new EF residual, when committed
     lazy_new: Optional[LazyState] = None  # the worker's new LASG slice
+    defense_new: DefenseState = DefenseState(None, None, None)
+
+
+def _sq_norm_diff(a_tree, b_tree) -> torch.Tensor:
+    """``||a - b||^2`` over two pytrees, float32, in chunks, so that one
+    chunk's difference is the only transient."""
+    parts = []
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        fa, fb = a.reshape(-1), b.reshape(-1)
+        for s in range(0, fa.numel(), _SQ_CHUNK):
+            d = fa[s:s + _SQ_CHUNK].to(F32) - fb[s:s + _SQ_CHUNK].to(F32)
+            parts.append(d.square_().sum())
+    if not parts:
+        return torch.zeros((), dtype=F32)
+    return torch.stack(parts).sum()
+
+
+def _qhat_plus(q_new, qhat_m, delta):
+    """``q_new = qhat + delta`` again, into ``q_new``'s buffers."""
+    for qn, qh, d in zip(tree_leaves(q_new), tree_leaves(qhat_m),
+                         tree_leaves(delta)):
+        torch.add(qh.to(F32), d, out=qn)
 
 
 def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
                   n_workers: int, cfg: StrategyConfig, *, bits_spent_m=0.0,
                   step: int = 0, R_anchor_m=None, error_m=None,
                   lazy_m: Optional[LazyState] = None, params=None,
-                  grad_stale_m=None, ckey_m=None) -> WorkerOut:
-    """One worker's width selection + quantize + skip decision (dense,
-    fixed-width, adaptive, sparse and error-feedback branches of the
-    reference, under any of its four skip rules).  ``error_m`` is the
+                  grad_stale_m=None, ckey_m=None, avail_m=None,
+                  defense_m: Optional[DefenseState] = None, flip_m=None,
+                  fkey_m=None) -> WorkerOut:
+    """One worker's width selection + quantize + skip decision + commit
+    (dense, fixed-width, adaptive, sparse and error-feedback branches of
+    the reference, under any of its four skip rules).  ``error_m`` is the
     worker's residual pytree (error feedback only); the new residual
     ``g_eff - q_new`` is formed in place in ``g_eff``, which this function
     owns.  ``lazy_m`` is the worker's LASG slice, ``params`` the current
     iterate (``lasg_wk2``/``lasg_ps``), ``grad_stale_m`` the WK2 second
-    backprop and ``ckey_m`` the worker's rand-k key."""
+    backprop and ``ckey_m`` the worker's rand-k key.
+
+    ``avail_m`` is the worker's participation bit (``None``: reachable).
+    ``flip_m`` / ``fkey_m`` are its wire-fault bit and flip key
+    (``corrupt_kind="bitflip"``): the codes are flipped after the honest
+    skip decision and the moments recomputed from the corrupted payload,
+    so the defense sees what the server sees.  ``defense_m`` is its
+    :class:`~repro_torch.core.defense.DefenseState` slice (required when
+    ``cfg.defense.active``).
+
+    Two bits gate the commits, as in the reference: ``uploaded`` (the
+    rule said upload and the worker was reachable) pays the bits;
+    ``committed`` (uploaded and accepted by the defense) commits qhat,
+    eps_hat, the clock reset, the estimator snapshots and the EF residual.
+    A skip, an absence and a rejection all leave that state as it was.
+    """
     check_supported(cfg)
     if lazy_m is None:
         lazy_m = empty_lazy_state()
+    available = avail_m is None or bool(avail_m)
     p = tree_size(grad_m)
     n_sidecars = len(tree_leaves(grad_m)) if cfg.per_leaf_radius else 1
-    R_anchor_new = (torch.zeros((), dtype=F32) if R_anchor_m is None
-                    else R_anchor_m)
+    R_anchor_in = (torch.zeros((), dtype=F32) if R_anchor_m is None
+                   else R_anchor_m)
+    R_anchor_new = R_anchor_in
+    R_tree = None
     if cfg.error_feedback:
         # g_eff = g + eta e, one FMA as XLA contracts it
         g_eff = tree_map(lambda g, e: fma_f32(cfg.ef_damping, e, g.to(F32)),
@@ -283,7 +359,7 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
                                              cfg.per_leaf_radius)
         width, onehot, R_anchor_new = select_bits(
             sched, R.cpu(), bits_spent_m, step, p, n_radii=n_sidecars,
-            R_anchor=R_anchor_new)
+            R_anchor=R_anchor_in)
         q_new, delta, err_sq, innovation_sq = backend.adaptive_roundtrip(
             grad_m, qhat_m, diff, R_tree, sched.grid, onehot)
         del diff
@@ -304,14 +380,17 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
     elif cfg.quantized:
         rt = backend.roundtrip(g_eff, qhat_m, cfg.effective_bits,
                                cfg.per_leaf_radius)
-        q_new, delta, R = rt.q_new, rt.delta, rt.R_max
+        q_new, delta, R, R_tree = rt.q_new, rt.delta, rt.R_max, rt.R_tree
         err_sq, innovation_sq = rt.err_sq, rt.innovation_sq
         del rt
         bits_if_upload = float(upload_bits(p, cfg.effective_bits,
                                            n_radii=n_sidecars))
         width_m = float(cfg.effective_bits)
     else:
-        q_new = tree_map(lambda g: g.to(F32), grad_m)
+        # q_new is the gradient itself; a copy where the clip rewrites it
+        clip = cfg.defense.clip_mult > 0.0
+        q_new = tree_map(lambda g: g.to(F32).clone() if clip else g.to(F32),
+                         grad_m)
         delta = tree_map(lambda g, q: g - q, q_new, qhat_m)
         R = torch.zeros((), dtype=F32)
         err_sq = torch.zeros((), dtype=F32)
@@ -323,6 +402,10 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
     lazy_pre, stats = lazy_m, None
     if not cfg.lazy:
         skip = False
+    elif not available:
+        # the reference evaluates the rule and discards it: an unreachable
+        # worker uploads nothing and its estimator state is held
+        skip = True
     elif cfg.lazy_rule == "laq7a":
         skip = bool(should_skip(innovation_sq, theta_hist, alpha, n_workers,
                                 err_sq, eps_hat_sq_m, clock_m, cfg.criterion))
@@ -334,14 +417,53 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
             theta_hist=theta_hist, alpha=alpha, n_workers=n_workers,
             grad_stale_m=grad_stale_m)
     del grad_m, grad_stale_m
-    uploaded = not skip
-    committed = uploaded
+    uploaded = (not skip) and available
+
+    if cfg.faults.wire_faulty and flip_m is not None and uploaded:
+        # MSB flips on the payload after the honest skip decision; both
+        # moments are recomputed from what the server receives (for every
+        # uploading worker, as the reference does)
+        if bool(flip_m):
+            delta = flip_wire_codes(delta, R_tree, cfg.effective_bits,
+                                    fkey_m, cfg.faults.bitflip_frac)
+            _qhat_plus(q_new, qhat_m, delta)
+        err_sq = _sq_norm_diff(g_eff, q_new).cpu()
+        innovation_sq = tree_sq_norm(delta).cpu()
+
+    if cfg.defense.active:
+        if defense_m is None or defense_m.norm_ema is None:
+            raise ValueError("cfg.defense.active needs the worker's "
+                             "DefenseState slice (init_comm_state)")
+        accept, clip_scale, defense_new = defense_step(
+            cfg.defense, defense_m, innovation_sq, err_sq, uploaded)
+        committed = uploaded and accept
+        if committed and cfg.defense.clip_mult > 0.0:
+            # the SAME scaled delta commits to server_agg and qhat
+            if float(clip_scale) != 1.0:
+                for d in tree_leaves(delta):
+                    d.mul_(clip_scale.to(d.device))
+                _qhat_plus(q_new, qhat_m, delta)
+            innovation_sq = innovation_sq * clip_scale * clip_scale
+            if cfg.compressed:
+                # support-restricted err_sq: rescaled, exact at scale 1
+                err_sq = err_sq * clip_scale * clip_scale
+            else:
+                err_sq = _sq_norm_diff(g_eff, q_new).cpu()
+    else:
+        committed = uploaded
+        defense_new = (defense_m if defense_m is not None
+                       else empty_defense_state())
+
     bits_m = (torch.tensor(float(uploaded), dtype=F32)
               * torch.as_tensor(bits_if_upload, dtype=F32))
     lazy_new = (lazy_pre if stats is None else
                 commit_upload(cfg.lazy_rule, cfg.lasg, lazy_pre, committed,
                               stats, params=params,
                               innovation_sq=innovation_sq))
+    if not available:
+        # an unreachable worker ran no local computation: hold its
+        # estimator state and its adaptive threshold anchor
+        lazy_new, R_anchor_new = lazy_m, R_anchor_in
     error_new = None
     if cfg.error_feedback and committed:
         # e_new = g_eff - q_new: the mass this round's compress dropped
@@ -354,7 +476,7 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         clock_new=0 if committed else int(clock_m) + 1,
         uploaded=uploaded, bits_m=bits_m, R=R.cpu(), width_m=width_m,
         committed=committed, R_anchor_new=R_anchor_new, error_new=error_new,
-        lazy_new=lazy_new)
+        lazy_new=lazy_new, defense_new=defense_new)
 
 
 def _add_(acc, tree):
@@ -364,7 +486,8 @@ def _add_(acc, tree):
 
 def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
               cfg: StrategyConfig, *, params=None,
-              stale_of: Optional[Callable[[int], object]] = None):
+              stale_of: Optional[Callable[[int], object]] = None,
+              avail=None, fault_flip=None, fault_keys=None):
     """Aggregate the workers' gradients into the LAQ gradient.
 
     ``grad_of(m)`` returns worker m's gradient pytree; it is called once
@@ -372,10 +495,17 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
     committed.  ``stale_of(m)``, the stale side of the reference (the WK2
     second backprop, ``lasg_wk2`` only), is called right after it, so only
     the worker in hand's stale gradient is live.  ``params`` is the
-    current iterate (``lasg_wk2``/``lasg_ps``).  Returns ``(agg_grad,
+    current iterate (``lasg_wk2``/``lasg_ps``).  ``avail`` ([W] bool) is
+    the round's participation mask, ``fault_flip`` / ``fault_keys`` the
+    wire-fault mask and keys (``core/faults.py``).  Returns ``(agg_grad,
     new_state, metrics)``; ``agg_grad`` is the new server aggregate.  The
     caller applies ``theta <- theta - alpha * agg_grad`` and then
     :func:`finalize_step`.
+
+    With the paper's sum the committed deltas are summed as they come;
+    a robust aggregator holds the W committed deltas until the last
+    worker and combines them coordinate-wise
+    (:func:`~repro_torch.core.defense.robust_aggregate`).
 
     ``state.qhat``, ``state.error.residual``, the pytree lists of
     ``state.lazy`` and ``state.server_agg`` are updated in place.
@@ -387,27 +517,42 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
     lazy = state.lazy._replace(stat_ema=state.lazy.stat_ema.clone(),
                                stat_count=state.lazy.stat_count.clone(),
                                sigma_hat_sq=state.lazy.sigma_hat_sq.clone())
+    defense = DefenseState(*(None if x is None else x.clone()
+                             for x in state.defense))
+    robust = cfg.aggregator != "sum"
     # sum_m delta_masked first, then agg + sum, as the reference's
     # a + jnp.sum(d, axis=0): the zero-started running sum repeats its
     # additions in worker order (a skipped worker adds an exact zero)
-    dsum = tree_map(torch.zeros_like, state.server_agg)
+    dsum = None if robust else tree_map(torch.zeros_like, state.server_agg)
+    held = [None] * n_workers
     eps, clocks = state.eps_hat_sq.clone(), state.clocks.clone()
     anchors = state.R_anchor.clone()
     residual = state.error.residual
-    bits_m, radii, widths, ups = [], [], [], []
+    bits_m, radii, widths, ups, comms = [], [], [], [], []
     for m in range(n_workers):
-        wo = worker_update(grad_of(m), state.qhat[m], state.eps_hat_sq[m],
-                           state.clocks[m], state.theta_hist, alpha,
-                           n_workers, cfg, bits_spent_m=state.bits_spent[m],
-                           step=state.step, R_anchor_m=state.R_anchor[m],
-                           error_m=None if residual is None else residual[m],
-                           lazy_m=worker_slice(lazy, m), params=params,
-                           grad_stale_m=(None if stale_of is None
-                                         else stale_of(m)),
-                           ckey_m=None if ckeys is None else ckeys[m])
+        wo = worker_update(
+            grad_of(m), state.qhat[m], state.eps_hat_sq[m], state.clocks[m],
+            state.theta_hist, alpha, n_workers, cfg,
+            bits_spent_m=state.bits_spent[m], step=state.step,
+            R_anchor_m=state.R_anchor[m],
+            error_m=None if residual is None else residual[m],
+            lazy_m=worker_slice(lazy, m), params=params,
+            grad_stale_m=None if stale_of is None else stale_of(m),
+            ckey_m=None if ckeys is None else ckeys[m],
+            avail_m=None if avail is None else bool(avail[m]),
+            defense_m=(defense_slice(defense, m) if cfg.defense.active
+                       else None),
+            flip_m=None if fault_flip is None else bool(fault_flip[m]),
+            fkey_m=None if fault_keys is None else fault_keys[m])
         store_slice(lazy, m, wo.lazy_new)
+        if cfg.defense.active:
+            for field, x in zip(defense, wo.defense_new):
+                field[m] = x
         if wo.committed:
-            _add_(dsum, wo.delta_masked)
+            if robust:
+                held[m] = wo.delta_masked
+            else:
+                _add_(dsum, wo.delta_masked)
             state.qhat[m] = wo.qhat_new
         if wo.error_new is not None:
             residual[m] = wo.error_new
@@ -418,7 +563,12 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
         radii.append(wo.R)
         widths.append(wo.width_m)
         ups.append(wo.uploaded)
+        comms.append(wo.committed)
         del wo
+    if robust:
+        dsum = robust_aggregate(cfg.aggregator, held, comms, cfg.trim_frac,
+                                template=state.server_agg)
+        del held
     _add_(state.server_agg, dsum)
     del dsum
 
@@ -431,13 +581,15 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
     metrics = RoundMetrics(uploads=uploads, bits=bits,
                            mean_skip=1.0 - uploads / n_workers,
                            radius_max=torch.stack(radii).amax(),
-                           mean_bits=mean_bits)
+                           mean_bits=mean_bits,
+                           rejections=sum(u and not c
+                                          for u, c in zip(ups, comms)))
     new_state = state._replace(
         eps_hat_sq=eps, clocks=clocks, R_anchor=anchors, lazy=lazy,
         bits_spent=state.bits_spent + bits_m,
         total_bits=state.total_bits + bits,
         total_uploads=state.total_uploads + uploads,
-        step=state.step + 1)
+        step=state.step + 1, defense=defense)
     return state.server_agg, new_state, metrics
 
 

@@ -49,7 +49,8 @@ from .adaptive import (dequantize_dynamic, quantize_dynamic,
 from .compressors import (_flat, _unflat, reference_sparse_quantize,
                           scatter_selection, select_support, sparse_grid)
 from .quantize import (dequantize_leaf, innovation, pack_codes, pad_codes,
-                       quantize_codes, roundtrip_parts, tree_sq_norm)
+                       quantize_codes, roundtrip_parts, tree_sq_norm,
+                       two_tau_f32)
 
 F32 = torch.float32
 
@@ -317,10 +318,29 @@ def sparse_roundtrip(backend, grad, qhat, bits: int, k: int, mode: str,
                            codes=codes, payload=payload)
 
 
+def codes_of_delta(delta: torch.Tensor, R, bits: int) -> torch.Tensor:
+    """Inverse of the dequantization on one leaf: the uint8 codes of
+    ``delta``, ``round((delta + R) / (2 tau R))`` clipped to the grid, and
+    the midpoint code where ``R == 0``.  The rounding is half to even, as
+    ``jnp.round`` (the kernels' ``floor(x + 1/2)`` is the forward map's),
+    and the division a true float32 division, as XLA keeps it for a
+    runtime divisor.  Exact on the dequantization's own output: its
+    rounding noise is far below the half step the round absorbs."""
+    R = torch.as_tensor(R, dtype=F32, device=delta.device)
+    levels = 2**bits - 1
+    live = R > 0
+    denom = torch.where(live, two_tau_f32(bits, R.device) * R,
+                        torch.ones_like(R))
+    q = torch.round((delta.to(F32) + R) / denom).clamp_(0, levels)
+    q = torch.where(live, q, torch.full_like(q, (levels + 1) // 2))
+    return q.to(torch.uint8)
+
+
 def delta_of_codes(codes: torch.Tensor, R, bits: int) -> torch.Tensor:
     """Re-emit the dequantized leaf from (possibly edited) codes: the
     expression of quantize.dequantize_innovation, per leaf."""
-    return dequantize_leaf(codes, torch.as_tensor(R, dtype=F32), bits)
+    return dequantize_leaf(codes, torch.as_tensor(R, dtype=F32,
+                                                  device=codes.device), bits)
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,14 @@ updates the state's ``server_agg`` in place.
 
 Ported: ``wire`` float and packed, fixed width b in {2, 4, 8} and the
 adaptive ``BitSchedule`` over the {2, 4, 8} grid, per-leaf or global
-radius, ``microbatch >= 1``, ``eta_schedule``.  The other branches raise
+radius, ``microbatch >= 1``, ``eta_schedule``, ``bernoulli`` / ``fixed_k``
+participation (each worker reads its slot of the cohort mask every
+worker draws alike) and the per-worker defense: validation and the norm
+gate on both wires, where a rejected upload is masked off the packed
+wire exactly like a skip, and the clip on the float wire.  What the
+reference refuses (``delay`` / ``markov`` participation, fault injection,
+a robust aggregator, the clip on the packed wire) raises ``ValueError``
+with its reason; the branches not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.  The reference's
 ``train_state_specs``, ``batch_specs`` and ``_match_param_spec`` place
 arrays on a TPU mesh (PartitionSpecs) and have no counterpart here.
@@ -49,7 +56,9 @@ import torch
 
 from ..core.adaptive import eta_at, tau_of_selection
 from ..core.criterion import push_history
-from ..core.engine import accumulate_loss_grads, value_and_grad
+from ..core.defense import DefenseState, defense_slice
+from ..core.engine import (accumulate_loss_grads, participation_mask,
+                           value_and_grad)
 from ..core.quantize import dequantize_leaf, tree_sq_norm, two_tau_f32
 from ..core.strategy import (CommState, StrategyConfig, check_supported,
                              init_comm_state, worker_update)
@@ -227,6 +236,31 @@ def _check_step_supported(strategy: StrategyConfig, wire: str, worker_axes,
     if wire not in ("float", "packed"):
         raise ValueError(f"wire must be 'float' or 'packed', got {wire!r}")
     check_supported(strategy)
+    # the reference's refusals (repro/launch/train.py), with its reasons
+    if strategy.participation not in ("full", "bernoulli", "fixed_k"):
+        raise ValueError(
+            "delay/markov participation is simulated-engine-only: 'delay' "
+            "would need a replicated params-history ring of max_delay+1 "
+            "full parameter copies, and 'markov' carries a stateful "
+            "per-worker on/off chain")
+    if strategy.max_delay != 0:
+        raise ValueError("max_delay needs participation='delay'")
+    if strategy.faults.active:
+        raise ValueError(
+            "fault injection is simulated-engine-only: the corruption / "
+            "crash stages live in RoundEngine.round, not the sharded step -- "
+            "the launch path is the defended deployment target")
+    if strategy.aggregator != "sum":
+        raise ValueError(
+            "trimmed_mean/median aggregation is simulated-engine-only: the "
+            "coordinate-wise sort needs every worker's dequantized delta in "
+            "one place; the sharded defenses are validation + norm-gate + "
+            "clip, which are per-worker-local")
+    if wire == "packed" and strategy.defense.clip_mult != 0.0:
+        raise ValueError(
+            "norm-clipping on the packed wire would need a per-worker f32 "
+            "scale sidecar (codes are integers); clip rides the float wire, "
+            "validate/gate work on both (a reject is one mask bit)")
     if (strategy.lazy and strategy.lazy_rule != "laq7a") or (
             strategy.grad_mode != "sgd"):
         _not_ported(f"lazy_rule={strategy.lazy_rule!r} / grad_mode="
@@ -287,16 +321,25 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
         qhat = comm.qhat[0]
         loss, grads = loss_and_grads(params, batch)
         lr_k = eta_at(strategy.eta_schedule, lr, comm.step)
+        # this worker's slot of the round's cohort: every worker draws the
+        # same [W] mask from (participation_seed, step)
+        mask = participation_mask(strategy, comm.step, W)
         wu = worker_update(grads, qhat, comm.eps_hat_sq[0], comm.clocks[0],
                            comm.theta_hist, lr_k, W, strategy,
                            bits_spent_m=comm.bits_spent[0], step=comm.step,
-                           R_anchor_m=comm.R_anchor[0])
+                           R_anchor_m=comm.R_anchor[0],
+                           avail_m=None if mask is None
+                           else bool(mask[workers.rank]),
+                           defense_m=(defense_slice(comm.defense, 0)
+                                      if strategy.defense.active else None))
         delta_masked = wu.delta_masked
         wu = wu._replace(delta_masked=None)
         if wire == "float":
             agg_delta = _float_aggregate(delta_masked, params, workers)
             del delta_masked
         else:
+            # a rejected upload is masked off the wire exactly like a skip
+            # (its bits_m still pay: the payload was sent)
             del delta_masked
             agg_delta, _ = _packed_aggregate(
                 grads, qhat, not wu.committed, strategy, workers,
@@ -332,7 +375,9 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
             total_bits=comm.total_bits + bits_sum,
             total_uploads=comm.total_uploads + uploads,
             step=comm.step + 1,
-            R_anchor=wu.R_anchor_new.reshape(1).to(F32))
+            R_anchor=wu.R_anchor_new.reshape(1).to(F32),
+            defense=DefenseState(*(None if x is None else x.reshape(1)
+                                   for x in wu.defense_new)))
         metrics = StepMetrics(loss=loss_sum, uploads=uploads, bits=bits_sum,
                               grad_sq=tree_sq_norm(agg).cpu())
         return TrainState(new_params, new_opt, new_comm,

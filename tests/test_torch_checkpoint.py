@@ -1,0 +1,190 @@
+"""The port's checkpoints (``repro_torch/checkpoint/ckpt.py``): the
+reference's npz layout, so that a carry saved by either package resumes in
+the other.
+
+A round trip keeps every leaf, dtype and the step; bfloat16 is stored as
+float32 under ``BF16::``; the file is written through ``.tmp``; a missing
+or extra key raises ``KeyError`` naming every offender and a shape
+mismatch ``ValueError``.  The port's per-worker lists are stored stacked on
+a leading W axis under the reference's keys.  A run split by a save and a
+load equals the unbroken run bit for bit; a carry saved by the JAX engine
+after k rounds and resumed in the port for k more (and the reverse) agrees
+with JAX's 2k rounds: counts exact, floats to rtol 1e-5 / atol 1e-5 (1e-4
+for the stochastic run), as ``test_torch_participation.py`` holds them.
+"""
+import os
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+
+import torch_engine_cases as C
+from repro.checkpoint import load_checkpoint as jload
+from repro.checkpoint import save_checkpoint as jsave
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+
+
+class Pair(NamedTuple):
+    a: object
+    b: object
+
+
+def _tree():
+    return {
+        "w": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+        "h": torch.linspace(-1, 1, 5).to(torch.bfloat16),
+        "n": Pair(a=torch.tensor([1, 2], dtype=torch.int32), b=None),
+        "workers": [{"q": torch.full((2,), float(m))} for m in range(3)],
+        "t": (torch.tensor([True, False]), 7),
+    }
+
+
+def test_round_trip_keeps_leaves_dtypes_and_step(tmp_path):
+    path = str(tmp_path / "sub" / "ck.npz")
+    tree = _tree()
+    save_checkpoint(path, tree, 42)
+    assert not os.path.exists(path + ".tmp")
+    with np.load(path) as z:
+        keys = set(z.files)
+        assert z["workers/q"].shape == (3, 2)      # the list, stacked
+        assert z["t/1"].dtype == np.int32 and int(z["__step__"]) == 42
+    assert keys == {"w", "BF16::h", "n/a", "workers/q", "t/0", "t/1",
+                    "__step__"}
+    back, step = load_checkpoint(path, _tree())
+    assert step == 42
+    for k in ("w", "h"):
+        assert back[k].dtype == tree[k].dtype
+        assert torch.equal(back[k], tree[k])
+    assert torch.equal(back["n"].a, tree["n"].a) and back["n"].b is None
+    assert back["n"].a.dtype == torch.int32
+    for m in range(3):
+        assert torch.equal(back["workers"][m]["q"], tree["workers"][m]["q"])
+    assert torch.equal(back["t"][0], tree["t"][0]) and back["t"][1] == 7
+
+
+def test_reference_reads_the_port_layout_and_back(tmp_path):
+    """The port's list is the reference's leading axis: JAX loads the port's
+    file into its own stacked template, and the port loads JAX's."""
+    import jax.numpy as jnp
+    path = str(tmp_path / "ck.npz")
+    tree = _tree()
+    save_checkpoint(path, {"workers": tree["workers"], "w": tree["w"]}, 3)
+    jt = {"workers": {"q": jnp.zeros((3, 2))}, "w": jnp.zeros((3, 4))}
+    back, step = jload(path, jt)
+    assert step == 3
+    np.testing.assert_array_equal(np.asarray(back["workers"]["q"]),
+                                  np.stack([np.full(2, m, np.float32)
+                                            for m in range(3)]))
+    jsave(path, back, 4)
+    again, step = load_checkpoint(path, {"workers": tree["workers"],
+                                         "w": tree["w"]})
+    assert step == 4 and torch.equal(again["w"], tree["w"])
+
+
+def test_key_errors_name_every_offender(tmp_path):
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, {"a": torch.zeros(2), "b": torch.zeros(3),
+                           "c": torch.zeros(1)}, 0)
+    with pytest.raises(KeyError) as e:
+        load_checkpoint(path, {"a": torch.zeros(2), "x": torch.zeros(3),
+                               "y": torch.zeros(1)})
+    msg = str(e.value)
+    for key in ("'x'", "'y'", "'b'", "'c'"):
+        assert key in msg, (key, msg)
+    with pytest.raises(ValueError, match="shape mismatch at 'b'"):
+        load_checkpoint(path, {"a": torch.zeros(2), "b": torch.zeros(4),
+                               "c": torch.zeros(1)})
+    np.savez(str(tmp_path / "other.npz"), a=np.zeros(2))
+    with pytest.raises(KeyError, match="__step__"):
+        load_checkpoint(str(tmp_path / "other.npz"), {"a": torch.zeros(2)})
+
+
+SPLIT = {
+    "laq_defended_crashes": ("quadratic", dict(
+        kind="laq", bits=4, faults=dict(corrupt_p=0.2, corrupt_kind="inf",
+                                        crash_p=0.1, fault_seed=2),
+        defense=dict(validate=True, gate_mult=4.0))),
+    "markov_ef": ("quadratic", dict(
+        kind="laq", bits=4, compressor="topk", error_feedback=True,
+        participation="markov", participation_p=0.6, markov_sojourn=3.0)),
+    "delay": ("quadratic", dict(kind="laq", bits=4, participation="delay",
+                                max_delay=2)),
+    "wk2_svrg_bernoulli": ("regression", dict(
+        kind="laq", bits=4, lazy_rule="lasg_wk2", grad_mode="svrg",
+        svrg_period=4, participation="bernoulli", participation_p=0.6)),
+    "wk_trimmed_mean": ("regression", dict(
+        kind="laq", bits=4, lazy_rule="lasg_wk", aggregator="trimmed_mean",
+        trim_frac=0.2)),
+}
+
+
+def _engines(problem, kw):
+    return (C.quadratic_engines(kw) if problem == "quadratic"
+            else C.regression_engines(kw))
+
+
+def _port_results_equal(a, b):
+    for f in C.EXACT + C.CLOSE:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("name", SPLIT)
+def test_split_run_equals_the_unbroken_one(name, tmp_path):
+    problem, kw = SPLIT[name]
+    _, te, _, tp = _engines(problem, kw)
+    _, whole = te.run_from(te.init_carry(tp, device="cpu"), 16)
+    path = str(tmp_path / "ck.npz")
+    carry0 = te.init_carry(tp, device="cpu")
+    save_checkpoint(path, carry0, 0)           # before any round, too
+    carry0, step = load_checkpoint(path, carry0)
+    assert step == 0
+    carry, first = te.run_from(carry0, 8)
+    save_checkpoint(path, carry, 8)
+    fresh = te.init_carry(tp, device="cpu")
+    resumed, step = load_checkpoint(path, fresh)
+    assert step == 8 and resumed[1].step == 8
+    _, second = te.run_from(resumed, 8)
+    for f in C.EXACT + C.CLOSE:
+        joined = torch.cat([getattr(first, f), getattr(second, f)])
+        assert torch.equal(joined, getattr(whole, f)), f
+    for k in whole.params:
+        assert torch.equal(second.params[k], whole.params[k])
+
+
+@pytest.mark.parametrize("direction", ("jax_to_port", "port_to_jax"))
+@pytest.mark.parametrize("name", ("laq_defended_crashes", "delay",
+                                  "markov_ef", "wk2_svrg_bernoulli"))
+def test_carry_resumes_across_the_packages(name, direction, tmp_path):
+    problem, kw = SPLIT[name]
+    je, te, jp, tp = _engines(problem, kw)
+    k = 6
+    _, want = je.run_from(je.init_carry(jp), 2 * k)
+    path = str(tmp_path / "ck.npz")
+    if direction == "jax_to_port":
+        jc, jfirst = je.run_from(je.init_carry(jp), k)
+        jsave(path, jc, k)
+        carry, step = load_checkpoint(path, te.init_carry(tp, device="cpu"))
+        _, second = te.run_from(carry, k)
+        first = jfirst
+    else:
+        tc, first = te.run_from(te.init_carry(tp, device="cpu"), k)
+        save_checkpoint(path, tc, k)
+        carry, step = jload(path, je.init_carry(jp))
+        _, second = je.run_from(carry, k)
+    assert step == k
+    tol = 1e-4 if problem == "regression" else 1e-5
+    for f in C.EXACT:
+        joined = np.concatenate([np.asarray(getattr(first, f)),
+                                 np.asarray(getattr(second, f))])
+        np.testing.assert_array_equal(joined, np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    for f in C.CLOSE:
+        joined = np.concatenate([np.asarray(getattr(first, f)),
+                                 np.asarray(getattr(second, f))])
+        np.testing.assert_allclose(joined, np.asarray(getattr(want, f)),
+                                   rtol=tol, atol=tol, err_msg=f)
+    for key in want.params:
+        np.testing.assert_allclose(np.asarray(second.params[key]),
+                                   np.asarray(want.params[key]), rtol=tol,
+                                   atol=tol, err_msg=key)

@@ -9,7 +9,10 @@ These are small, quick cases (the first call builds the kernels with
 shapes.  Kernels 5, 6, 3 and 8 (``quantize_codes_fused``,
 ``quantize_codes_adaptive``, ``quantize_pack``, ``dequant_acc``) are
 bitwise throughout, kernel 8 in the Pallas kernel's order (acc first);
-the last test runs the sharded step on one NCCL worker.  R, codes, packed bytes, delta and q_new are bitwise; the moments
+the sharded step runs on one NCCL worker, and the participation and
+robustness layer runs on the card against the CPU (uploads, bits and
+rejections equal; the watchdog's log equal; a checkpoint resume equal to
+the unbroken run).  R, codes, packed bytes, delta and q_new are bitwise; the moments
 agree to rtol 1e-5, because the kernel sums per thread in float64 and the
 plain version reduces in float32.
 """
@@ -370,3 +373,115 @@ def test_run_stochastic_on_the_card_equals_the_cpu(cuda, kind):
     for f in ("cum_uploads", "cum_bits", "mean_bits"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     torch.testing.assert_close(a.loss, b.loss, rtol=1e-4, atol=1e-6)
+
+
+# The participation and robustness layer on the card: the quadratic of
+# test_engine_parity.py (10 workers, p=20) on the fused wire, each case on
+# the card and on the CPU.  Uploads, bits, widths and every worker's
+# rejections equal; floats to rtol 1e-4 (other reductions).
+ROBUST_CASES = {
+    "bernoulli": dict(participation="bernoulli", participation_p=0.5,
+                      participation_seed=3),
+    "markov": dict(participation="markov", participation_p=0.7,
+                   markov_sojourn=3.0, participation_seed=1),
+    "delay": dict(participation="delay", max_delay=2),
+    "bitflip_gate": dict(faults=dict(corrupt_p=0.3, corrupt_kind="bitflip",
+                                     bitflip_frac=0.5, fault_seed=4),
+                         defense=dict(validate=True, gate_mult=1.5)),
+    "scale_clip_crash": dict(faults=dict(corrupt_p=0.25, corrupt_kind="scale",
+                                         corrupt_scale=-40.0, crash_p=0.1,
+                                         fault_seed=7),
+                             defense=dict(validate=True, gate_mult=4.0,
+                                          clip_mult=4.0)),
+    "nan_no_reconcile": dict(faults=dict(corrupt_p=0.2, corrupt_kind="nan",
+                                         crash_p=0.1, fault_seed=1),
+                             defense=dict(reconcile_crashes=False)),
+    "trimmed_mean": dict(faults=dict(corrupt_p=0.15, corrupt_kind="scale",
+                                     corrupt_scale=-40.0),
+                         aggregator="trimmed_mean", trim_frac=0.2),
+    "median": dict(aggregator="median"),
+}
+
+
+def _quadratic(dev):
+    gen = torch.Generator().manual_seed(0)
+    c = torch.randn(10, 20, generator=gen)
+    a = 0.5 + torch.rand(10, 20, generator=gen)
+
+    def loss(params, data):
+        cc, aa = data
+        return 0.5 * torch.sum(aa * torch.square(params["x"] - cc)) / 10
+
+    return loss, (c.to(dev), a.to(dev))
+
+
+def _robust_engine(dev, kw):
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.defense import DefenseConfig
+    from repro_torch.core.engine import FullBatchSource, RoundEngine
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.strategy import StrategyConfig
+    kw = dict(kw)
+    if "faults" in kw:
+        kw["faults"] = FaultConfig(**kw["faults"])
+    if "defense" in kw:
+        kw["defense"] = DefenseConfig(**kw["defense"])
+    loss, data = _quadratic(dev)
+    cfg = StrategyConfig(kind="laq", bits=4, wire_backend="fused",
+                         criterion=CriterionConfig(D=10, xi=0.08, t_bar=20),
+                         **kw)
+    return RoundEngine(FullBatchSource(loss, data), cfg, alpha=0.3)
+
+
+@pytest.mark.parametrize("case", ROBUST_CASES)
+def test_robust_engine_on_the_card_equals_the_cpu(cuda, case):
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = _robust_engine(dev, ROBUST_CASES[case])
+        runs[dev] = eng.run_from(eng.init_carry({"x": torch.zeros(20)},
+                                                device=dev), 30)
+    (ca, a), (cb, b) = runs["cuda"], runs["cpu"]
+    for f in ("cum_uploads", "cum_bits", "mean_bits"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    torch.testing.assert_close(a.loss, b.loss, rtol=1e-4, atol=1e-6,
+                               equal_nan=True)
+    ra, rb = ca[1].defense.rejects, cb[1].defense.rejects
+    assert (ra is None and rb is None) or torch.equal(ra, rb)
+    assert ca[0]["x"].device.type == "cuda"
+
+
+def test_watchdog_on_the_card_equals_the_cpu(cuda, tmp_path):
+    from repro_torch.core.defense import (DefenseConfig, WatchdogConfig,
+                                          run_with_watchdog)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = _robust_engine(dev, dict(faults=dict(corrupt_p=0.1,
+                                                   corrupt_kind="inf")))
+
+        def escalate(engine):
+            return type(engine)(engine.source, engine.cfg._replace(
+                defense=DefenseConfig(validate=True)), alpha=engine.alpha)
+
+        out[dev] = run_with_watchdog(
+            eng, {"x": torch.zeros(20)}, 40, ckpt_path=str(tmp_path / dev),
+            wd=WatchdogConfig(chunk=10), escalate=escalate, device=dev)
+    (ra, la, ca), (rb, lb, cb) = out["cuda"], out["cpu"]
+    assert la == lb and la["rollbacks"]
+    assert torch.equal(ra.cum_bits, rb.cum_bits)
+    assert torch.equal(ca[1].defense.rejects, cb[1].defense.rejects)
+
+
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+    eng = _robust_engine("cuda", ROBUST_CASES["scale_clip_crash"])
+    p0 = {"x": torch.zeros(20)}
+    _, whole = eng.run_from(eng.init_carry(p0, device="cuda"), 16)
+    carry, first = eng.run_from(eng.init_carry(p0, device="cuda"), 8)
+    save_checkpoint(str(tmp_path / "ck.npz"), carry, 8)
+    carry, step = load_checkpoint(str(tmp_path / "ck.npz"),
+                                  eng.init_carry(p0, device="cuda"))
+    assert step == 8 and carry[1].qhat[0]["x"].device.type == "cuda"
+    _, second = eng.run_from(carry, 8)
+    for f in ("cum_uploads", "cum_bits", "loss"):
+        assert torch.equal(torch.cat([getattr(first, f), getattr(second, f)]),
+                           getattr(whole, f)), f

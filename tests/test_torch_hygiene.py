@@ -86,7 +86,10 @@ def test_port_files_cover_the_new_modules():
     for want in ("src/repro_torch/launch/mesh.py",
                  "src/repro_torch/launch/train.py",
                  "src/repro_torch/optim/optimizers.py",
-                 "benchmarks_torch/bits_sweep.py"):
+                 "benchmarks_torch/bits_sweep.py",
+                 "src/repro_torch/core/faults.py",
+                 "src/repro_torch/core/defense.py",
+                 "src/repro_torch/checkpoint/ckpt.py"):
         assert want in names, want
 
 
@@ -121,3 +124,30 @@ def test_sharded_step_runs_where_its_parameters_are():
     assert WorkerGroup(None, 4, 0, "gloo").transport("cuda") == (
         "gloo, staged through pinned host memory")
     assert WorkerGroup(None, 1, 0, "nccl").transport("cuda") == "nccl"
+
+
+def test_engine_and_watchdog_refuse_a_missing_card(tmp_path):
+    """``RoundEngine`` and ``run_with_watchdog`` put their carry on the card
+    unless told ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.defense import WatchdogConfig, run_with_watchdog
+    from repro_torch.core.engine import FullBatchSource, RoundEngine
+    from repro_torch.core.strategy import StrategyConfig
+
+    def loss(params, data):
+        return torch.sum(torch.square(params["x"] - data))
+
+    engine = RoundEngine(FullBatchSource(loss, torch.ones(2, 3)),
+                         StrategyConfig(kind="laq", bits=4), alpha=0.1)
+    p0 = {"x": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine.init_carry(p0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine.run(p0, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_with_watchdog(engine, p0, 2, ckpt_path=str(tmp_path / "a.npz"))
+    res, log, _ = run_with_watchdog(engine, p0, 2,
+                                    ckpt_path=str(tmp_path / "b.npz"),
+                                    wd=WatchdogConfig(chunk=1), device="cpu")
+    assert log["rollbacks"] == [] and res.loss.shape == (2,)

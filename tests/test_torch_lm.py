@@ -11,7 +11,10 @@ skips; upload and bit counts must be identical and the loss trajectory
 agree to rtol 1e-4.  lm_frontier's two other deterministic methods, A-LAQ
 (radius schedule, grid (2, 4, 8), relative thresholds) and EF-top-k (b=4,
 5% of the coordinates, error feedback), run 5 rounds each, held the same
-way, with the per-round mean width exact too.
+way, with the per-round mean width exact too.  chip_smoke.py's
+robust_full settings (fixed_k participation, scaling and crash faults,
+validation, gate, clip, reconciliation) run 5 rounds against JAX's live
+engine with every worker's rejections exact as well.
 
 The gradients of the two frameworks differ at the ulp, which moves the
 few codes that sit on a rounding boundary by one grid step, and the next
@@ -333,5 +336,63 @@ def test_stochastic_lm_rounds_match_reference_engine(setup, method):
     np.testing.assert_array_equal(got.cum_bits.numpy(),
                                   np.asarray(want.cum_bits))
     assert int(got.cum_uploads[0]) == W
+    np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
+                               rtol=1e-4)
+
+
+# chip_smoke.py phase 9's robust_full path on the smoke model: fixed_k
+# participation (3 of 4), the -40x Byzantine scaling and crash-restart
+# faults, validation, norm gate, clip and crash reconciliation, at b=8 on
+# the fused wire.  The seeds put in 5 rounds an absent worker in every
+# round, crashes of reachable workers in rounds 2 and 5 and corrupted
+# uploads of warm (already accepted) workers in rounds 3 and 5.
+ROBUST_FULL = dict(kind="laq", bits=8, per_leaf_radius=True,
+                   wire_backend="fused", participation="fixed_k",
+                   participation_p=0.75, participation_seed=0)
+ROBUST_FAULTS = dict(corrupt_p=0.25, corrupt_kind="scale",
+                     corrupt_scale=-40.0, crash_p=0.25, fault_seed=25)
+ROBUST_DEFENSE = dict(validate=True, gate_mult=4.0, clip_mult=4.0,
+                      reconcile_crashes=True)
+
+
+def test_robust_full_lm_rounds_match_reference_engine(setup):
+    """5 rounds: uploads, bits and every worker's rejections exact, loss to
+    rtol 1e-4 as above."""
+    from repro.core import DefenseConfig as JDefense, FaultConfig as JFault
+    from repro_torch.core.defense import DefenseConfig
+    from repro_torch.core.engine import participation_mask
+    from repro_torch.core.faults import FaultConfig, corruption_mask, crash_mask
+    cfg_j, cfg_t, params_j, corpus_j, params_t, corpus_t = setup
+    rounds = 5
+    jcfg = JStrategy(**ROBUST_FULL, faults=JFault(**ROBUST_FAULTS),
+                     defense=JDefense(**ROBUST_DEFENSE),
+                     criterion=JCriterion(**LM_CRIT), eta_schedule=JEta(**LM_ETA))
+    je = JEngine(JSource(jax_worker_loss(cfg_j, W), corpus_j,
+                         deterministic=True, accum=ACCUM, scale=1.0),
+                 jcfg, alpha=ALPHA)
+    jcarry, want = je.run_from(je.init_carry(params_j), rounds)
+    tcfg = StrategyConfig(**ROBUST_FULL, faults=FaultConfig(**ROBUST_FAULTS),
+                          defense=DefenseConfig(**ROBUST_DEFENSE),
+                          criterion=CriterionConfig(**LM_CRIT),
+                          eta_schedule=EtaSchedule(**LM_ETA))
+    te = RoundEngine(AccumulatingSource(lm_worker_loss(cfg_t, W), corpus_t,
+                                        deterministic=True, accum=ACCUM,
+                                        scale=1.0), tcfg, alpha=ALPHA)
+    tcarry, got = te.run_from(te.init_carry(params_t, device="cpu"), rounds)
+
+    avail = [participation_mask(tcfg, k, W) for k in range(rounds)]
+    crashed = [crash_mask(tcfg.faults, k, W) for k in range(rounds)]
+    corrupt = [corruption_mask(tcfg.faults, k, W) for k in range(rounds)]
+    assert all(int(a.sum()) == 3 for a in avail)
+    assert any(bool((a & c).any()) for a, c in zip(avail[1:], crashed[1:]))
+    assert any(bool((a & c).any()) for a, c in zip(avail[1:], corrupt[1:]))
+    np.testing.assert_array_equal(got.cum_uploads.numpy(),
+                                  np.asarray(want.cum_uploads))
+    np.testing.assert_array_equal(got.cum_bits.numpy(),
+                                  np.asarray(want.cum_bits))
+    np.testing.assert_array_equal(tcarry[1].defense.rejects.numpy(),
+                                  np.asarray(jcarry[1].defense.rejects))
+    assert int(tcarry[1].defense.rejects.sum()) > 0
+    assert np.all(np.isfinite(got.loss.numpy()))
     np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
                                rtol=1e-4)

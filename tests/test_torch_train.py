@@ -13,7 +13,10 @@ different sizes, so that the skip rule (xi = 0.3 without the quantization
 slack) keeps some workers and not others after step 1.  Three
 configurations of 3 steps: the float wire, the packed wire at b=4 and the
 packed wire with the adaptive schedule on the grid (2, 4, 8), whose
-absolute thresholds give the workers different widths.  All run
+absolute thresholds give the workers different widths; and both wires
+with bernoulli participation (p=0.5) and the defense's validation and
+norm gate, where each worker reads its slot of the round's cohort and an
+absent or rejected worker is masked off the wire like a skip.  All run
 ``microbatch=2`` and the 1/t stepsize.
 
 Tolerances: uploads, bits and each worker's cumulative bits (which fix its
@@ -38,6 +41,8 @@ import pytest
 
 import torch_dist_cases as C
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.defense import DefenseConfig
+from repro_torch.core.faults import FaultConfig
 from repro_torch.core.strategy import StrategyConfig
 from repro_torch.launch.mesh import WorkerGroup
 from repro_torch.launch.train import make_train_step
@@ -54,6 +59,7 @@ import torch_dist_cases as C
 from repro.configs import get_config, smoke_config
 from repro.core.adaptive import BitSchedule, EtaSchedule
 from repro.core.criterion import CriterionConfig
+from repro.core.defense import DefenseConfig
 from repro.core.strategy import StrategyConfig
 from repro.launch.train import init_train_state, make_train_step
 from repro.models import init_params
@@ -72,13 +78,16 @@ batch = jax.device_put({k: jnp.asarray(v, jnp.int32)
                         for k, v in C.train_batch(cfg.vocab).items()},
                        NamedSharding(mesh, P("data", None)))
 out = {}
-for config in C.TRAIN_CONFIGS:
+for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
     sched = (BitSchedule(kind="radius", grid=C.GRID,
                          thresholds=C.TRAIN_THRESHOLDS)
              if config == "packed_adaptive" else None)
+    extra = (dict(C.TRAIN_PARTICIPATION,
+                  defense=DefenseConfig(**C.TRAIN_DEFENSE))
+             if config in C.TRAIN_DEFENDED else {})
     strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
                            criterion=CriterionConfig(**C.TRAIN_CRITERION),
-                           eta_schedule=EtaSchedule(**C.TRAIN_ETA))
+                           eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra)
     opt = sgd()
     state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
                              ("data",))
@@ -86,10 +95,10 @@ for config in C.TRAIN_CONFIGS:
                            opt_state=opt.init(params0))
     step = jax.jit(make_train_step(
         cfg, mesh, strat, opt, lr=C.TRAIN_LR, worker_axes=("data",),
-        wire="float" if config == "float" else "packed",
+        wire="float" if config.endswith("float") else "packed",
         microbatch=C.TRAIN_MICROBATCH))
     rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
-           "bits_spent": []}
+           "bits_spent": [], "rejects": []}
     for _ in range(C.TRAIN_STEPS):
         state, met = step(state, batch)
         rec["loss"].append(float(met.loss))
@@ -97,6 +106,9 @@ for config in C.TRAIN_CONFIGS:
         rec["bits"].append(float(met.bits))
         rec["grad_sq"].append(float(met.grad_sq))
         rec["bits_spent"].append(np.asarray(state.comm.bits_spent))
+        rej = state.comm.defense.rejects
+        rec["rejects"].append(np.full(C.TRAIN_W, -1) if rej is None
+                              else np.asarray(rej))
     for k, v in rec.items():
         out[f"{config}/{k}"] = np.asarray(v)
     out[f"{config}/total_uploads"] = np.asarray(state.comm.total_uploads)
@@ -181,30 +193,113 @@ def test_every_rank_holds_the_same_params(runs, config):
             np.testing.assert_array_equal(v, first[k], err_msg=k)
 
 
+@pytest.mark.parametrize("config", C.TRAIN_DEFENDED)
+def test_participation_and_defense_match_reference(runs, config):
+    """Bernoulli participation (p=0.5) with validation and the norm gate:
+    each worker reads its slot of the cohort, and uploads, bits, every
+    worker's bits and rejections equal the reference's; loss and
+    parameters as above."""
+    from repro_torch.core.engine import participation_mask
+    want, got = runs
+    strat = StrategyConfig(**C.TRAIN_PARTICIPATION)
+    masks = [participation_mask(strat, k, C.TRAIN_W).numpy()
+             for k in range(C.TRAIN_STEPS)]
+    assert not all(m.all() for m in masks)       # a worker was absent
+    ups = want[f"{config}/uploads"]
+    assert ups[0] == masks[0].sum()
+    for m, g in enumerate(got):
+        for field in ("uploads", "bits"):
+            np.testing.assert_array_equal(g[f"{config}/{field}"],
+                                          want[f"{config}/{field}"])
+        np.testing.assert_array_equal(g[f"{config}/bits_spent"],
+                                      want[f"{config}/bits_spent"][:, m])
+        np.testing.assert_array_equal(g[f"{config}/rejects"],
+                                      want[f"{config}/rejects"][:, m])
+        if not masks[0][m]:
+            assert g[f"{config}/bits_spent"][0] == 0.0
+    np.testing.assert_allclose(got[0][f"{config}/loss"],
+                               want[f"{config}/loss"], rtol=1e-4)
+    w, g = _params(want, config), _params(got[0], config)
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
+                                   err_msg=k)
+    for other in got[1:]:
+        for k, v in _params(other, config).items():
+            np.testing.assert_array_equal(v, g[k], err_msg=k)
+
+
+def test_defended_wires_give_bitwise_equal_params(runs):
+    _, got = runs
+    for g in got:
+        f, p = _params(g, "defended_float"), _params(g, "defended_packed")
+        for k in f:
+            np.testing.assert_array_equal(p[k], f[k], err_msg=k)
+        for field in ("loss", "uploads", "bits", "grad_sq", "bits_spent",
+                      "rejects"):
+            np.testing.assert_array_equal(g[f"defended_packed/{field}"],
+                                          g[f"defended_float/{field}"])
+
+
+# (make_train_step keywords, exception, message, id).  The first ten ids
+# are the branches the sharded step lacked before participation and the
+# defense were ported: "Participation" and the two "Robustness" cases are
+# now the reference's own refusals (repro/launch/train.py), raised as
+# ValueError with its reasons.
 GATED = [
-    (dict(strategy=dict(lazy_rule="lasg_wk")), "Lazy rules and SVRG"),
-    (dict(strategy=dict(grad_mode="svrg")), "Lazy rules and SVRG"),
-    (dict(strategy=dict(participation="bernoulli")), "Participation"),
-    (dict(strategy=dict(defense=object())), "Robustness"),
-    (dict(strategy=dict(aggregator="median")), "Robustness"),
-    (dict(strategy=dict(compressor="topk")),
+    (dict(strategy=dict(lazy_rule="lasg_wk")), NotImplementedError,
+     "Lazy rules and SVRG", "Lazy rules and SVRG"),
+    (dict(strategy=dict(grad_mode="svrg")), NotImplementedError,
+     "Lazy rules and SVRG", "Lazy rules and SVRG"),
+    (dict(strategy=dict(participation="delay", max_delay=2)), ValueError,
+     "simulated-engine-only", "Participation"),
+    (dict(strategy=dict(faults=FaultConfig(crash_p=0.1))), ValueError,
+     "fault injection", "Robustness"),
+    (dict(strategy=dict(aggregator="median")), ValueError,
+     "trimmed_mean/median", "Robustness"),
+    (dict(strategy=dict(compressor="topk")), NotImplementedError,
+     "Sharded step: compressors and error feedback",
      "Sharded step: compressors and error feedback"),
-    (dict(strategy=dict(error_feedback=True)),
+    (dict(strategy=dict(error_feedback=True)), NotImplementedError,
+     "Sharded step: compressors and error feedback",
      "Sharded step: compressors and error feedback"),
-    (dict(hierarchical=True), "Pods and hierarchical workers"),
-    (dict(worker_axes=("pod", "data")), "Pods and hierarchical workers"),
-    (dict(model_parallel=2), "Tensor parallelism"),
+    (dict(hierarchical=True), NotImplementedError,
+     "Pods and hierarchical workers", "Pods and hierarchical workers"),
+    (dict(worker_axes=("pod", "data")), NotImplementedError,
+     "Pods and hierarchical workers", "Pods and hierarchical workers"),
+    (dict(model_parallel=2), NotImplementedError, "Tensor parallelism",
+     "Tensor parallelism"),
+    (dict(strategy=dict(participation="markov", participation_p=0.5)),
+     ValueError, "simulated-engine-only", "markov"),
+    (dict(strategy=dict(defense=DefenseConfig(clip_mult=4.0))), ValueError,
+     "packed wire", "clip on the packed wire"),
+    (dict(strategy=dict(faults=FaultConfig(corrupt_p=0.1,
+                                           corrupt_kind="bitflip"))),
+     ValueError, "fault injection", "bitflip"),
 ]
 
 
-@pytest.mark.parametrize("kw,item", GATED, ids=[i for _, i in GATED])
-def test_unported_branches_name_their_roadmap_item(kw, item):
+@pytest.mark.parametrize("kw,exc,match", [g[:3] for g in GATED],
+                         ids=[g[3] for g in GATED])
+def test_unported_branches_name_their_roadmap_item(kw, exc, match):
+    """What the sharded step does not run raises: NotImplementedError
+    naming the ROADMAP item of a branch not ported yet, ValueError with
+    the reference's reason where the reference refuses it too."""
     cfg = smoke_config(get_config("stablelm-1.6b"))
     strat = StrategyConfig(kind="laq", bits=4, **kw.pop("strategy", {}))
     workers = WorkerGroup(None, 4, 0, "gloo")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         make_train_step(cfg, workers, strat, sgd(), lr=1e-2, wire="packed",
                         **kw)
+
+
+def test_the_float_wire_takes_the_clip():
+    cfg = smoke_config(get_config("stablelm-1.6b"))
+    strat = StrategyConfig(kind="laq", bits=4, participation="fixed_k",
+                           participation_p=0.5,
+                           defense=DefenseConfig(validate=True, gate_mult=4.0,
+                                                 clip_mult=4.0))
+    make_train_step(cfg, WorkerGroup(None, 4, 0, "gloo"), strat, sgd(),
+                    lr=1e-2, wire="float")
 
 
 @pytest.mark.parametrize("strategy,wire", [

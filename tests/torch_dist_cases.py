@@ -85,6 +85,11 @@ TRAIN_CRITERION = dict(D=10, xi=0.3, t_bar=100, include_quant_error=False)
 TRAIN_ETA = dict(kind="inv_t", t0=30.0)
 TRAIN_THRESHOLDS = (0.05, 0.07)     # absolute radius thresholds of A-LAQ
 TRAIN_CONFIGS = ("float", "packed", "packed_adaptive")
+# bernoulli participation with validation and the norm gate, on both wires
+TRAIN_DEFENDED = ("defended_float", "defended_packed")
+TRAIN_PARTICIPATION = dict(participation="bernoulli", participation_p=0.5,
+                           participation_seed=1)
+TRAIN_DEFENSE = dict(validate=True, gate_mult=4.0)
 
 
 TRAIN_STRATEGY = dict(kind="laq", bits=4, per_leaf_radius=True,
@@ -238,9 +243,9 @@ def rank_packed_aggregate(workers, out_dir):
 
 
 def rank_train(workers, out_dir):
-    """The three step configurations, 3 steps each, from the same
-    parameters and batch; each rank saves its metrics, per-worker bits and
-    final parameters."""
+    """The step configurations (TRAIN_CONFIGS and TRAIN_DEFENDED), 3 steps
+    each, from the same parameters and batch; each rank saves its metrics,
+    its bits and rejections, and the final parameters."""
     import dataclasses
 
     import torch
@@ -248,6 +253,7 @@ def rank_train(workers, out_dir):
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.core.adaptive import BitSchedule, EtaSchedule
     from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.defense import DefenseConfig
     from repro_torch.core.strategy import StrategyConfig
     from repro_torch.launch.mesh import worker_batch
     from repro_torch.launch.train import init_train_state, make_train_step
@@ -263,23 +269,26 @@ def rank_train(workers, out_dir):
                           for k, v in train_batch(cfg.vocab).items()},
                          workers)
     out = {}
-    for config in TRAIN_CONFIGS:
+    for config in TRAIN_CONFIGS + TRAIN_DEFENDED:
         sched = (BitSchedule(kind="radius", grid=GRID,
                              thresholds=TRAIN_THRESHOLDS)
                  if config == "packed_adaptive" else None)
+        extra = (dict(TRAIN_PARTICIPATION,
+                      defense=DefenseConfig(**TRAIN_DEFENSE))
+                 if config in TRAIN_DEFENDED else {})
         strat = StrategyConfig(
             **TRAIN_STRATEGY, bit_schedule=sched,
             criterion=CriterionConfig(**TRAIN_CRITERION),
-            eta_schedule=EtaSchedule(**TRAIN_ETA))
+            eta_schedule=EtaSchedule(**TRAIN_ETA), **extra)
         opt = sgd()
         params = params_from_numpy(numpy_params(shapes), device="cpu")
         state = init_train_state(params, workers, strat, opt)
         step = make_train_step(cfg, workers, strat, opt, lr=TRAIN_LR,
-                               wire="float" if config == "float"
-                               else "packed",
+                               wire=("float" if config.endswith("float")
+                                     else "packed"),
                                microbatch=TRAIN_MICROBATCH)
         rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
-               "bits_spent": []}
+               "bits_spent": [], "rejects": []}
         for _ in range(TRAIN_STEPS):
             state, met = step(state, batch)
             rec["loss"].append(float(met.loss))
@@ -287,6 +296,8 @@ def rank_train(workers, out_dir):
             rec["bits"].append(float(met.bits))
             rec["grad_sq"].append(float(met.grad_sq))
             rec["bits_spent"].append(float(state.comm.bits_spent[0]))
+            rej = state.comm.defense.rejects
+            rec["rejects"].append(-1 if rej is None else int(rej[0]))
         for k, v in rec.items():
             out[f"{config}/{k}"] = np.asarray(v)
         out[f"{config}/total_uploads"] = np.asarray(state.comm.total_uploads)
