@@ -107,6 +107,32 @@ CPU or to a plain version while a CUDA tensor is at hand):
    corrupted upload of a warm worker, which must be rejected.  absmax
    and quantize_pack_fused launch rounds x W x 12 times on each path,
    whoever was absent; losses finite; peak below 76 GB.
+10. Serving at stablelm-1.6b's published widths.
+   a. Serve: 24 layers, bfloat16 params and compute, random weights from
+      seed 0; prompts of 8 x 512 tokens, ``max_len`` 576, 64 greedy tokens
+      through ``launch/serve.py``'s ``jit_serve`` after a warm-up session.
+      Prefill ms, decode ms per token (median), tokens/s, peak and the
+      cache's shape and dtype, beside their bounds.  The first decode
+      step's logits must equal ``stack.forward`` over prompt + token at
+      the last position within ``SERVE_ATOL`` (bfloat16; measured 0.1016
+      on the H100).
+   b. Publish: phase 4's LAQ trainer (b=8) at 8 layers, 4 rounds, through
+      ``launch/publish.py``'s ``trainer_rounds``, feeds ``core/replica.py``'s
+      publisher (fused wire, b=4, threshold 0.25, max_staleness 1) and a
+      ``ReplicaFleet`` of two replicas with ``max_delay=1``.  After each
+      round replica 0 serves 8 x 512 prompts and 32 greedy tokens from its
+      float32 weights at bfloat16 compute (a setting the JAX package cannot
+      run).  Replica 0 equals ``theta_pub`` bitwise every round and replica
+      1 the previous round's; absmax launches 12 per publish round and
+      quantize_pack_fused 12 per push, counted as the ``publish`` path
+      beside the trainer's ``publish_trainer``.  Peak below 76 GB.
+
+Phase 3 also serves smoke stablelm in float32 on the card and on the CPU
+(prefill and 8 greedy tokens: equal ids, logits within
+``SERVE_SMALL_ATOL``), and replays 10 CPU rounds of the micro LM of
+``benchmarks_torch/serve_frontier.py`` through the fused-wire publisher
+and two replicas on both, at b=4 and with the adaptive schedule: equal
+kinds, widths and bits, ``theta_pub`` and replica 0 bitwise equal.
 
 Phase 2 also holds kernels 5 and 6 (``quantize_codes_fused``,
 ``quantize_codes_adaptive``) and kernel 3 (``quantize_pack``) at the 12
@@ -158,6 +184,11 @@ ROBUST_ROUNDS = 3
 ROBUST_SEEDS = {"robust_full": dict(participation_seed=0, fault_seed=25),
                 "robust_sort": dict(participation_seed=7, fault_seed=0)}
 SMALL_ROBUST_ROUNDS = 4
+BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN = 8, 512, 64, 576
+SERVE_ATOL = 0.25             # bf16 decode vs forward (phase 10a)
+SERVE_SMALL_ATOL = 1e-4       # float32 card vs CPU logits (phase 3)
+PUBLISH_LAYERS, PUBLISH_ROUNDS, PUBLISH_TOKENS = 8, 4, 32   # phase 10b
 
 
 def log(msg):
@@ -800,6 +831,117 @@ def small_slice_check(torch, ops):
 
 
 
+def serve_small_check(torch):
+    """Phase 3: smoke stablelm in float32 serves on the card as on the CPU:
+    prefill of 4 x 24 tokens and 8 decode steps fed the CPU's greedy
+    tokens, logits to SERVE_SMALL_ATOL, the greedy ids of each step equal;
+    then the greedy pair of ``jit_serve`` free-running, the same ids."""
+    from repro_torch import random
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import jit_serve
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = {"cpu": init_params(0, cfg, device="cpu")}
+    params["cuda"] = tree_map(lambda l: l.to("cuda"), params["cpu"])
+    prompts = random.randint(random.PRNGKey(1, device="cpu"), (4, 24), 0,
+                             cfg.vocab).long()
+    logits, caches = {}, {}
+    for dev in ("cpu", "cuda"):
+        logits[dev], caches[dev] = prefill(params[dev], prompts.to(dev), cfg,
+                                           32)
+    worst = 0.0
+    for step in range(9):
+        a, b = logits["cuda"].cpu(), logits["cpu"]
+        worst = max(worst, (a - b).abs().max().item())
+        ids = {d: torch.argmax(x[:, -1:], -1) % cfg.vocab
+               for d, x in (("cuda", a), ("cpu", b))}
+        if not (worst <= SERVE_SMALL_ATOL
+                and torch.equal(ids["cuda"], ids["cpu"])):
+            raise AssertionError(f"serve: step {step} logits differ card vs "
+                                 f"CPU by {worst:.3e} or ids differ")
+        if step < 8:
+            for dev in ("cpu", "cuda"):
+                logits[dev], caches[dev] = decode_step(
+                    params[dev], caches[dev], ids["cpu"].to(dev), cfg)
+    seqs = {}
+    for dev in ("cpu", "cuda"):
+        pre, dec = jit_serve(cfg, 32)
+        tok, cache = pre(params[dev], prompts.to(dev))
+        seq = [tok]
+        for _ in range(8):
+            tok, cache = dec(params[dev], cache, tok)
+            seq.append(tok)
+        seqs[dev] = torch.cat(seq, 1).cpu()
+    if not torch.equal(seqs["cuda"], seqs["cpu"]):
+        raise AssertionError("serve: greedy ids differ card vs CPU")
+    log(f"  ok serve on smoke stablelm (float32): prefill + 8 decode steps, "
+        f"logits max abs diff card vs CPU {worst:.3e} (limit "
+        f"{SERVE_SMALL_ATOL}), greedy ids equal: {seqs['cuda'][0].tolist()}")
+
+
+def publish_small_check(torch, ops):
+    """Phase 3: the micro LM's trainer (``benchmarks_torch/serve_frontier``)
+    runs 10 rounds on the CPU; the fused-wire publisher and a fleet of two
+    replicas (``max_delay=1``) replay that trajectory on the card and on the
+    CPU, at b=4 and with the adaptive schedule.  Kinds, widths and bits
+    equal; ``theta_pub`` and replica 0 bitwise equal card vs CPU."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from benchmarks_torch.serve_frontier import _train_trajectory
+    from repro_torch.core.adaptive import BitSchedule
+    from repro_torch.core.replica import (PublishConfig, init_publisher,
+                                          publish)
+    from repro_torch.launch.publish import ReplicaFleet
+    from repro_torch.tree import tree_leaves, tree_map
+
+    params0, traj = _train_trajectory(10, torch.device("cpu"))
+    policies = {
+        "b4": PublishConfig(bits=4, threshold=0.35, max_staleness=1,
+                            wire_backend="fused"),
+        "adaptive": PublishConfig(threshold=0.0, wire_backend="fused",
+                                  bit_schedule=BitSchedule(
+                                      kind="radius", grid=(2, 4, 8),
+                                      threshold_mode="rel",
+                                      thresholds=(0.05, 0.5))),
+    }
+    for name, pcfg in policies.items():
+        runs = {}
+        before = (ops.absmax.launches, ops.quantize_pack_fused.launches)
+        for dev in ("cpu", "cuda"):
+            p0 = tree_map(lambda l: l.to(dev), params0)
+            st = init_publisher(p0, pcfg)
+            fleet = ReplicaFleet(p0, 2, pcfg, max_delay=1)
+            rows = []
+            for params in traj:
+                msg, st = publish(pcfg, st,
+                                  tree_map(lambda l: l.to(dev), params))
+                fleet.deliver(msg)
+                rows.append((type(msg).__name__, getattr(msg, "width", None),
+                             st.bits_sent))
+            runs[dev] = (rows, st.theta_pub, fleet.replicas[0].params)
+        launched = (ops.absmax.launches - before[0],
+                    ops.quantize_pack_fused.launches - before[1])
+        (ra, ta, pa), (rb, tb, pb) = runs["cuda"], runs["cpu"]
+        if ra != rb:
+            raise AssertionError(f"publish {name}: kinds/widths/bits differ "
+                                 f"card vs CPU: {ra} vs {rb}")
+        for label, x, y in (("theta_pub", ta, tb), ("replica 0", pa, pb)):
+            if not all(torch.equal(u.cpu(), v) for u, v in
+                       zip(tree_leaves(x), tree_leaves(y))):
+                raise AssertionError(f"publish {name}: {label} differs card "
+                                     "vs CPU")
+        if not all(launched):
+            raise AssertionError(f"publish {name}: kernels 1, 2 launched "
+                                 f"{launched} times on the card")
+        log(f"  ok publish {name} over 10 micro-LM rounds: kinds/widths "
+            f"{[r[:2] for r in ra]}, bits {ra[-1][2]:.0f} equal; theta_pub "
+            f"and replica 0 bitwise card vs CPU; card launches (absmax, "
+            f"quantize_pack_fused) {launched}")
+
+
 def check_codes_kernels(leaf_shapes, torch, ops, ref):
     """Phase 2, kernels 5, 6 and 3: bitwise against their plain versions at
     every main-path shape and the edge cases; kernel 6 pinned at a width is
@@ -1276,6 +1418,250 @@ def run_path(torch, ops, method, cfg, rounds, *, stochastic=False,
     return launches, recs, round_ms, peaks, rejects
 
 
+def _greedy_session(torch, prefill_fn, decode_fn, params, prompts, tokens):
+    """One serve session: prefill, then ``tokens`` greedy decode steps, the
+    card synchronized after each.  Returns the prefill ms, the per-step
+    ms, the ids and the cache."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = prefill_fn(params, prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms, ids = [], [tok]
+    for _ in range(tokens):
+        t0 = time.perf_counter()
+        tok, cache = decode_fn(params, cache, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        ids.append(tok)
+    return prefill_ms, step_ms, torch.cat(ids, 1), cache
+
+
+def serve_full(torch, cfg):
+    """Phase 10a: stablelm-1.6b at its published widths, depth and dtypes
+    (bfloat16 params and compute), random weights from seed 0: prompts of
+    SERVE_BATCH x SERVE_PROMPT tokens, greedy decode of SERVE_TOKENS after a
+    warm-up session of the same shape.  The first decode step's logits
+    must equal the training forward over prompt + token at the last
+    position within SERVE_ATOL."""
+    from repro_torch import random
+    from repro_torch.launch.serve import jit_serve
+    from repro_torch.models.config import n_params
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+
+    B, S, T, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN
+    log(f"phase 10a: serve, stablelm-1.6b at {cfg.n_layers} layers "
+        f"(P={n_params(cfg)}), {cfg.param_dtype} params and compute, "
+        f"{B} x {S} prompt tokens, max_len {max_len}, {T} greedy tokens")
+    params = init_params(0, cfg, device="cuda")
+    prompts = random.randint(random.PRNGKey(1, device="cuda"), (B, S), 0,
+                             cfg.vocab).long()
+    pre, dec = jit_serve(cfg, max_len)
+    _greedy_session(torch, pre, dec, params, prompts, T)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prefill_ms, step_ms, ids, cache = _greedy_session(torch, pre, dec, params,
+                                                      prompts, T)
+    peak = torch.cuda.max_memory_allocated()
+    k = cache["attn"]["k"]
+    cache_shape, cache_dtype = tuple(k.shape), str(k.dtype)
+    cache_gb = 2 * k.numel() * k.element_size() / 1e9
+    del cache
+    decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    tok_s = B * T / (sum(step_ms) / 1e3)
+    if not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+        raise AssertionError("phase 10a: greedy ids out of the vocabulary")
+
+    # the check: decode step 1 against the forward over prompt + token
+    logits0, cache = prefill(params, prompts, cfg, max_len)
+    tok0 = torch.argmax(logits0[:, -1:], -1) % cfg.vocab
+    logits1, cache = decode_step(params, cache, tok0, cfg)
+    del cache
+    seq = torch.cat([prompts, tok0], 1)
+    # one key block over the S + 1 positions: the chunking of the forward
+    # would otherwise take gcd(kv_chunk, S + 1) = 1-position blocks
+    fwd_cfg = dataclasses.replace(cfg, kv_chunk=S + 1)
+    with torch.no_grad():
+        want = forward(params, seq, fwd_cfg)[:, -1:]
+    err = (logits1 - want).abs().max().item()
+    same = (torch.argmax(logits1, -1) == torch.argmax(want, -1)).float()
+    log(f"  decode step 1 vs forward over {S + 1} tokens: max abs diff "
+        f"{err:.4e} (limit {SERVE_ATOL}), |logits| <= "
+        f"{want.abs().max().item():.3f}, argmax agreement "
+        f"{same.mean().item():.3f}")
+    if not err <= SERVE_ATOL:
+        raise AssertionError(f"phase 10a: decode differs from the forward by "
+                             f"{err}")
+    del want, logits0, logits1, seq
+
+    block = n_params(cfg) - 2 * cfg.padded_vocab() * cfg.d_model - cfg.d_model
+    head = cfg.d_model * cfg.padded_vocab()
+    attn_flops = (2 * 2 * B * cfg.n_heads * cfg.hd * S * (S + 1) // 2
+                  * cfg.n_layers)
+    prefill_bound = (2 * block * B * S + attn_flops) / BF16_OPS_PER_S * 1e3
+    decode_bytes = 2 * (block + head) + cache_gb * 1e9
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    row = dict(prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound,
+               decode_ms_per_token_median=decode_ms,
+               decode_bound_ms=decode_bound, tokens_per_s=tok_s,
+               peak_gb=peak / 1e9, base_gb=base / 1e9,
+               cache_shape=cache_shape, cache_dtype=cache_dtype,
+               cache_gb=cache_gb, decode_vs_forward_max_abs=err)
+    log(f"  ok serve: prefill {prefill_ms:.2f} ms (bound {prefill_bound:.2f} "
+        f"ms: {2 * block * B * S:.4e} block flops + {attn_flops:.4e} "
+        f"attention flops over {BF16_OPS_PER_S:.3e}/s), decode "
+        f"{decode_ms:.3f} ms per token, median of {T} (bound "
+        f"{decode_bound:.3f} ms: {decode_bytes / 1e9:.3f} GB over "
+        f"{HBM_BYTES_PER_S:.3e} B/s), {tok_s:.1f} tokens/s; peak "
+        f"{peak / 1e9:.2f} GB (weights {base / 1e9:.2f} GB); cache "
+        f"{cache_shape} {cache_dtype} {cache_gb:.3f} GB; step ms min "
+        f"{min(step_ms):.3f} max {max(step_ms):.3f}")
+    if peak >= PEAK_LIMIT:
+        raise AssertionError(f"phase 10a: peak {peak} B >= {PEAK_LIMIT:.0f}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def publish_full(torch, ops, cfg):
+    """Phase 10b: phase 4's LAQ trainer at PUBLISH_LAYERS layers feeds the
+    publisher (fused wire, b=4, threshold 0.25, max_staleness 1) and a
+    fleet of two replicas with ``max_delay=1``; after each round replica 0
+    serves SERVE_BATCH x SERVE_PROMPT prompts and PUBLISH_TOKENS greedy
+    tokens from its float32 weights at bfloat16 compute.  Replica 0 must
+    equal ``theta_pub`` bitwise every round and replica 1 the previous
+    round's; absmax launches 12 per publish round and quantize_pack_fused
+    12 per push.  The trainer's and the publisher's launches are counted
+    as two paths, each zeroed just before it runs and read just after."""
+    from repro_torch import random
+    from repro_torch.core.engine import AccumulatingSource, RoundEngine
+    from repro_torch.core.replica import (PublishConfig, init_publisher,
+                                          publish, staleness_drift)
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.launch.publish import ReplicaFleet, trainer_rounds
+    from repro_torch.launch.serve import jit_serve
+    from repro_torch.models.config import n_params
+    from repro_torch.models.model import init_params, lm_worker_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    pcfg = PublishConfig(bits=4, threshold=0.25, max_staleness=1,
+                         wire_backend="fused")
+    log(f"phase 10b: publish, phase 4's LAQ (b=8) at {cfg.n_layers} layers "
+        f"(P={n_params(cfg)}), W={W} of {N_LOCAL}x{SEQ} tokens, "
+        f"{PUBLISH_ROUNDS} rounds; {pcfg}; 2 replicas, max_delay 1; "
+        f"replica 0 serves {SERVE_BATCH}x{SERVE_PROMPT} prompts and "
+        f"{PUBLISH_TOKENS} greedy tokens from float32 weights at bfloat16 "
+        "compute (a setting the JAX package cannot run: its layer scan "
+        "changes the carry's dtype)")
+    corpus = lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda")
+    engine = RoundEngine(AccumulatingSource(lm_worker_loss(cfg, W), corpus,
+                                            deterministic=True, accum=ACCUM,
+                                            scale=1.0),
+                         strategies()["laq"], alpha=ALPHA)
+    params0 = init_params(0, cfg, device="cuda")
+    st = init_publisher(params0, pcfg)
+    fleet = ReplicaFleet(params0, 2, pcfg, max_delay=1)
+    prev_view = tree_map(torch.clone, st.theta_pub)
+    trainer = trainer_rounds(engine, params0, PUBLISH_ROUNDS, device="cuda")
+    del params0
+    prompts = random.randint(random.PRNGKey(2, device="cuda"),
+                             (SERVE_BATCH, SERVE_PROMPT), 0,
+                             cfg.vocab).long()
+    pre, dec = jit_serve(cfg, SERVE_PROMPT + PUBLISH_TOKENS)
+    paths = {"publish_trainer": dict.fromkeys(KERNELS, 0),
+             "publish": dict.fromkeys(KERNELS, 0)}
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {name: getattr(ops, name).launches for name in KERNELS}
+        for name in KERNELS:
+            paths[path][name] += got[name]
+        return out, ms, got
+
+    rows = []
+    for k in range(PUBLISH_ROUNDS):
+        torch.cuda.reset_peak_memory_stats()
+        params, train_ms, _ = counted("publish_trainer",
+                                      lambda: next(trainer))
+        (msg, st), pub_ms, got = counted("publish",
+                                         lambda: publish(pcfg, st, params))
+        kind = type(msg).__name__
+        want = {"absmax": 12,
+                "quantize_pack_fused": 12 if kind == "DeltaMsg" else 0}
+        if {n: got[n] for n in KERNELS if got[n]} != {
+                n: v for n, v in want.items() if v}:
+            raise AssertionError(f"phase 10b round {k + 1}: publish launched "
+                                 f"{got}, expected {want}")
+        _, apply_ms, got = counted("publish", lambda: fleet.deliver(msg))
+        if any(got.values()):
+            raise AssertionError(f"phase 10b: the replicas launched {got}")
+        r0, r1 = fleet.replicas
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(r0.params), tree_leaves(st.theta_pub))):
+            raise AssertionError(f"phase 10b round {k + 1}: replica 0 is not "
+                                 "theta_pub bitwise")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(r1.params), tree_leaves(prev_view))):
+            raise AssertionError(f"phase 10b round {k + 1}: replica 1 is not "
+                                 "the previous round's theta_pub")
+        del prev_view
+        prev_view = tree_map(torch.clone, st.theta_pub)
+        drift = staleness_drift(params, r0)
+        width = getattr(msg, "width", None)
+        del msg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_ms, step_ms, ids, cache = _greedy_session(
+            torch, pre, dec, r0.params, prompts, PUBLISH_TOKENS)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        del cache
+        if not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+            raise AssertionError("phase 10b: greedy ids out of the vocabulary")
+        peak = torch.cuda.max_memory_allocated()
+        rows.append(dict(round=k + 1, kind=kind, width=width,
+                         train_ms=train_ms, publish_ms=pub_ms,
+                         apply_ms=apply_ms, serve_ms=serve_ms,
+                         prefill_ms=prefill_ms,
+                         decode_ms_median=sorted(step_ms)[len(step_ms) // 2],
+                         drift=drift, bits_sent=st.bits_sent,
+                         peak_gb=peak / 1e9, rounds_behind=fleet.freshness()))
+        log(f"  round {k + 1}: {kind} width {width} "
+            f"bits_sent {st.bits_sent:.6e}; train {train_ms:.1f} ms, "
+            f"publish {pub_ms:.1f} ms, apply (2 replicas) {apply_ms:.1f} ms, "
+            f"serve {serve_ms:.1f} ms (prefill {prefill_ms:.1f}, decode "
+            f"median {rows[-1]['decode_ms_median']:.2f} ms/token); drift "
+            f"||theta - replica 0||_inf {drift:.4e}; replicas behind "
+            f"{fleet.freshness()}; peak {peak / 1e9:.2f} GB; replica 0 == "
+            "theta_pub bitwise, replica 1 == the previous round's")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"phase 10b: peak {peak} B >= "
+                                 f"{PEAK_LIMIT:.0f}")
+        del params
+    if st.n_pushes == 0:
+        raise AssertionError("phase 10b: the publisher never pushed")
+    want_trainer = PUBLISH_ROUNDS * W * 12
+    if (paths["publish_trainer"]["absmax"] != want_trainer
+            or paths["publish_trainer"]["quantize_pack_fused"] != want_trainer
+            or paths["publish"]["absmax"] != PUBLISH_ROUNDS * 12
+            or paths["publish"]["quantize_pack_fused"] != st.n_pushes * 12):
+        raise AssertionError(f"phase 10b launches {paths}")
+    log(f"  ok publish: {st.n_pushes} pushes, {st.n_resyncs} resyncs; "
+        f"launches {paths}")
+    del trainer, engine, corpus, st, fleet, prev_view
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, rows
+
+
 def expect_launches(method, launches, want):
     for name in KERNELS:
         if launches[name] != want.get(name, 0):
@@ -1353,6 +1739,8 @@ def main() -> int:
     stochastic_small_check(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         robust_small_check(torch, tmpdir)
+    serve_small_check(torch)
+    publish_small_check(torch, ops)
 
     paths = {
         "laq": (cfg, {"absmax": 1, "quantize_pack_fused": 1}),
@@ -1469,6 +1857,12 @@ def main() -> int:
             f", rejections per worker {rejects}; round ms "
             f"{[round(x, 1) for x in round_ms]}, max peak "
             f"{max(peaks) / 1e9:.2f} GB")
+
+    serve_row = serve_full(torch, get_config("stablelm-1.6b"))
+    publish_paths, publish_rows = publish_full(
+        torch, ops, dataclasses.replace(cfg, n_layers=PUBLISH_LAYERS))
+    by_path.update(publish_paths)
+    log("  " + json.dumps({"serve": serve_row, "publish": publish_rows}))
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {

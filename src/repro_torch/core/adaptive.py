@@ -128,7 +128,7 @@ def grid_costs(schedule: BitSchedule, p: int, n_radii: int = 1) -> torch.Tensor:
 
 
 def select_bits(schedule: BitSchedule, R, bits_spent, step, p: int,
-                n_radii: int = 1, R_anchor=None):
+                n_radii: int = 1, R_anchor=None, *, eager: bool = False):
     """This worker's width for the round: ``(b_sel, onehot, anchor_new)``,
     float32 CPU tensors (0-d, [G], 0-d).  ``R`` is the innovation radius,
     ``bits_spent`` the worker's cumulative wire bits, ``step`` the round
@@ -138,7 +138,9 @@ def select_bits(schedule: BitSchedule, R, bits_spent, step, p: int,
     ``th = f32(thresholds) * anchor_new`` with ``anchor_new = max(R,
     f32(decay) * anchor_prev)`` in "rel" mode; ``idx = sum(R > th)``; the
     budget's ``allowance = f32(rate) * (step + 1) + cost[-1] - spent``,
-    whose multiply and add XLA contracts into one FMA.
+    whose multiply and add XLA contracts into one FMA.  ``eager=True``
+    rounds that product and sum on their own, as the reference does when
+    it is called outside ``jit`` (the publisher, ``core/replica.py``).
     """
     schedule.validate()
     G = len(schedule.grid)
@@ -154,8 +156,10 @@ def select_bits(schedule: BitSchedule, R, bits_spent, step, p: int,
     if schedule.kind == "budget":
         costs = grid_costs(schedule, p, n_radii)
         rate = float(schedule.total_bits) / float(schedule.horizon)
-        allowance = (fma_f32(_f32(rate), _f32(float(step)) + 1.0, costs[-1])
-                     - _f32(bits_spent))
+        rounds = _f32(float(step)) + 1.0
+        pro_rata = (_f32(rate) * rounds + costs[-1] if eager
+                    else fma_f32(_f32(rate), rounds, costs[-1]))
+        allowance = pro_rata - _f32(bits_spent)
         fits = (costs <= allowance).nonzero().reshape(-1)
         idx = min(idx, int(fits.max()) if fits.numel() else 0)
     onehot = torch.zeros(G, dtype=F32)

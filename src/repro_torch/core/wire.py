@@ -84,7 +84,11 @@ class WireBackend:
         raise NotImplementedError
 
     def roundtrip(self, grad, qhat, bits: int, per_leaf: bool = False,
-                  with_payload: bool = False) -> WireRoundtrip:
+                  with_payload: bool = False, R_tree=None) -> WireRoundtrip:
+        """The dense quantize step.  ``R_tree``: per-leaf radii that a
+        pass 1 of this backend already reduced (``per_leaf`` only); the
+        fused backend then skips its own pass 1, the reference backend
+        reduces them again, to the same values."""
         raise NotImplementedError
 
     def adaptive_roundtrip(self, grad, qhat, diff, R_tree, grid, onehot):
@@ -132,7 +136,8 @@ class ReferenceWire(WireBackend):
     def innovation(self, grad, qhat, per_leaf=False):
         return innovation(grad, qhat, per_leaf)
 
-    def roundtrip(self, grad, qhat, bits, per_leaf=False, with_payload=False):
+    def roundtrip(self, grad, qhat, bits, per_leaf=False, with_payload=False,
+                  R_tree=None):
         qints, R_tree, delta, q_new, R_max, err_sq = roundtrip_parts(
             grad, qhat, bits, per_leaf)
         innovation_sq = tree_sq_norm(delta)
@@ -179,13 +184,20 @@ class FusedWire(WireBackend):
         R_leaves, R_max = self._radii(g_leaves, tree_leaves(qhat), per_leaf)
         return None, tree_unflatten(treedef, R_leaves), R_max
 
-    def roundtrip(self, grad, qhat, bits, per_leaf=False, with_payload=False):
+    def roundtrip(self, grad, qhat, bits, per_leaf=False, with_payload=False,
+                  R_tree=None):
         if bits not in (1, 2, 4, 8):
             raise ValueError("the fused wire backend covers the packed-width "
                              f"grid (1, 2, 4, 8), got bits={bits}")
         g_leaves, treedef = tree_flatten(grad)
         q_leaves = tree_leaves(qhat)
-        R_leaves, R_max = self._radii(g_leaves, q_leaves, per_leaf)
+        if R_tree is None:
+            R_leaves, R_max = self._radii(g_leaves, q_leaves, per_leaf)
+        else:
+            if not per_leaf:
+                raise ValueError("R_tree carries per-leaf radii")
+            R_leaves = tree_leaves(R_tree)
+            R_max = torch.stack(R_leaves).amax()
 
         delta_leaves, qnew_leaves, payload = [], [], []
         err_parts, inn_parts = [], []
@@ -338,9 +350,27 @@ def codes_of_delta(delta: torch.Tensor, R, bits: int) -> torch.Tensor:
 
 def delta_of_codes(codes: torch.Tensor, R, bits: int) -> torch.Tensor:
     """Re-emit the dequantized leaf from (possibly edited) codes: the
-    expression of quantize.dequantize_innovation, per leaf."""
+    expression of quantize.dequantize_innovation, per leaf, rounded once
+    as XLA contracts it under jit (see :func:`delta_of_codes_eager`)."""
     return dequantize_leaf(codes, torch.as_tensor(R, dtype=F32,
                                                   device=codes.device), bits)
+
+
+def delta_of_codes_eager(codes: torch.Tensor, R, bits: int) -> torch.Tensor:
+    """The same dequantization as eager (un-jitted) JAX rounds it:
+    ``(f32(2 tau) R) q - R`` with the product and the difference each
+    rounded on their own, 0 where ``R == 0``.
+
+    There are two forms because the reference evaluates the one expression
+    in two ways.  The engine and the sharded step run under ``jit``, where
+    XLA contracts it into one FMA: :func:`delta_of_codes`.  The publisher
+    and the replica (``core/replica.py``) run eagerly, between rounds, and
+    eager JAX does not contract: this form, which the two use on both
+    sides of the wire.  On the same codes they differ in the last bit on
+    nearly half the elements."""
+    R = torch.as_tensor(R, dtype=F32, device=codes.device)
+    d = two_tau_f32(bits, R.device) * R * codes.to(F32) - R
+    return torch.where(R > 0, d, torch.zeros_like(d))
 
 
 # ---------------------------------------------------------------------------

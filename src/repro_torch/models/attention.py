@@ -1,10 +1,16 @@
-"""Grouped-query causal attention for training, port of the train/prefill
-half of ``repro/models/attention.py`` (no caches).
+"""Grouped-query causal attention, port of ``repro/models/attention.py``:
+the train/prefill path and the one-token decode against a KV cache.
 
 The online-softmax chunking of the reference is kept: queries in chunks of
 ``q_chunk``, and for each chunk only the key/value blocks at or before it,
 so the score transient stays ``[B, KV, G, Cq, Ck]`` whatever the length.
 Plain ``einsum``; the port does not call a fused attention operator.
+
+The decode cache is written **in place** (the counterpart of the
+reference's donated cache): ``decode_attention`` stores the new key and
+value into its ``cache_k``/``cache_v`` views of the stacked cache and
+returns them.  With ``sliding_window`` set, the cache is a ring of
+``min(max_len, window)`` slots.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import math
 import torch
 
 from .config import ModelConfig
+from ..device import resolve_device
 from .layers import apply_rope, linear, normal_init, rms_norm
 
 
@@ -88,9 +95,60 @@ def chunked_causal_attention(q, k, v, q_positions, kv_positions,
     return torch.cat(out_chunks, dim=1)
 
 
-def attention_forward(p, x, positions, cfg: ModelConfig):
-    """Train path. x:[B,S,D]; positions:[S]."""
+def attention_forward(p, x, positions, cfg: ModelConfig, *,
+                      return_kv: bool = False):
+    """Train/prefill path. x:[B,S,D]; positions:[S].  With ``return_kv``
+    also the post-RoPE keys and the values, ``(k, v)`` of ``[B,S,KV,hd]``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg)
     o = chunked_causal_attention(q, k, v, positions, positions, cfg)
-    return linear(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    out = linear(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    return (out, (k, v)) if return_kv else out
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots per sequence: ``max_len``, or a ring of ``min(max_len,
+    sliding_window)`` when the config has a window."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_blocks: int,
+                  dtype=torch.bfloat16, *, device="cuda"):
+    """Zero KV cache stacked over layers: ``{"k", "v"}`` of
+    ``[n_blocks, batch, Sc, KV, hd]``, ``Sc = cache_len(cfg, max_len)``."""
+    dev = resolve_device(device)
+    shape = (n_blocks, batch, cache_len(cfg, max_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_attention(p, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
+    """One-token decode. x:[B,1,D]; cache_[kv]:[B,Sc,KV,hd]; pos: the
+    token's position (a Python int).
+
+    Writes k and v at slot ``pos % Sc`` (window) or ``pos``, in place, and
+    returns ``(out [B,1,D], cache_k, cache_v)``.  The scores are the
+    reference's: the product in the activations' dtype, then float32,
+    divided by ``sqrt(hd)`` (a true division), the slots at or past
+    ``min(pos + 1, Sc)`` masked with -1e30, a float32 softmax, and the
+    value product in the cache's dtype.
+    """
+    B = x.shape[0]
+    Sc = cache_k.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    slot = pos % Sc if cfg.sliding_window else pos
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.to(q.dtype)).float()
+    s = s / torch.tensor(math.sqrt(hd), dtype=torch.float32, device=s.device)
+    valid = torch.arange(Sc, device=s.device) < min(pos + 1, Sc)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(cache_v.dtype), cache_v)
+    # ``o @ wo`` promotes to the activations' dtype in the reference
+    out = linear(o.reshape(B, 1, H * hd).to(x.dtype), p["wo"])
+    return out, cache_k, cache_v

@@ -1,5 +1,5 @@
-"""Top-level model API: loss and the federated worker objective (port of
-``repro/models/model.py``, training half)."""
+"""Top-level model API: loss, the federated worker objective and the
+serving calls (port of ``repro/models/model.py``, dense family)."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +32,6 @@ def lm_worker_loss(cfg: ModelConfig, n_workers: int):
 
 init_params = stack.init_params
 forward = stack.forward
+init_cache = stack.init_cache
+prefill = stack.prefill
+decode_step = stack.decode_step

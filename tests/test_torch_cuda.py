@@ -485,3 +485,87 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     for f in ("cum_uploads", "cum_bits", "loss"):
         assert torch.equal(torch.cat([getattr(first, f), getattr(second, f)]),
                            getattr(whole, f)), f
+
+
+def test_serve_on_the_card_equals_the_cpu(cuda):
+    """Smoke stablelm in float32: prefill and 8 decode steps fed the CPU's
+    greedy tokens give logits within 1e-4 of the CPU's and the same greedy
+    ids; ``jit_serve``'s greedy pair free-running gives the same ids."""
+    import dataclasses
+
+    from repro_torch import random
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import jit_serve
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = {"cpu": init_params(0, cfg, device="cpu")}
+    params["cuda"] = tree_map(lambda l: l.to(cuda), params["cpu"])
+    prompts = random.randint(random.PRNGKey(1, device="cpu"), (4, 24), 0,
+                             cfg.vocab).long()
+    out = {d: prefill(params[d], prompts.to(d), cfg, 32)
+           for d in ("cpu", "cuda")}
+    for step in range(9):
+        a, b = out["cuda"][0].cpu(), out["cpu"][0]
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        ids = torch.argmax(b[:, -1:], -1) % cfg.vocab
+        assert torch.equal(torch.argmax(a[:, -1:], -1) % cfg.vocab, ids)
+        if step < 8:
+            out = {d: decode_step(params[d], out[d][1], ids.to(d), cfg)
+                   for d in ("cpu", "cuda")}
+    seqs = {}
+    for d in ("cpu", "cuda"):
+        pre, dec = jit_serve(cfg, 32)
+        tok, cache = pre(params[d], prompts.to(d))
+        seq = [tok]
+        for _ in range(8):
+            tok, cache = dec(params[d], cache, tok)
+            seq.append(tok)
+        seqs[d] = torch.cat(seq, 1).cpu()
+    assert seqs["cuda"].dtype == torch.int32
+    assert torch.equal(seqs["cuda"], seqs["cpu"])
+
+
+@pytest.mark.parametrize("policy", ("b4", "adaptive"))
+def test_publisher_on_the_card_equals_the_cpu(cuda, policy):
+    """The micro LM's trainer runs 10 rounds on the CPU; the fused-wire
+    publisher and two replicas (max_delay 1) replay it on the card and on
+    the CPU: kinds, widths and bits equal, theta_pub and replica 0 bitwise,
+    and the card launches kernels 1 and 2."""
+    from benchmarks_torch.serve_frontier import _train_trajectory
+    from repro_torch.core.adaptive import BitSchedule
+    from repro_torch.core.replica import (PublishConfig, init_publisher,
+                                          publish)
+    from repro_torch.launch.publish import ReplicaFleet
+    from repro_torch.tree import tree_leaves, tree_map
+
+    pcfg = {"b4": PublishConfig(bits=4, threshold=0.35, max_staleness=1,
+                                wire_backend="fused"),
+            "adaptive": PublishConfig(threshold=0.0, wire_backend="fused",
+                                      bit_schedule=BitSchedule(
+                                          kind="radius", grid=(2, 4, 8),
+                                          threshold_mode="rel",
+                                          thresholds=(0.05, 0.5)))}[policy]
+    params0, traj = _train_trajectory(10, torch.device("cpu"))
+    runs = {}
+    before = (ops.absmax.launches, ops.quantize_pack_fused.launches)
+    for d in ("cpu", "cuda"):
+        st = init_publisher(tree_map(lambda l: l.to(d), params0), pcfg)
+        fleet = ReplicaFleet(tree_map(lambda l: l.to(d), params0), 2, pcfg,
+                             max_delay=1)
+        rows = []
+        for params in traj:
+            msg, st = publish(pcfg, st, tree_map(lambda l: l.to(d), params))
+            fleet.deliver(msg)
+            rows.append((type(msg).__name__, getattr(msg, "width", None),
+                         st.bits_sent))
+        runs[d] = (rows, st.theta_pub, fleet.replicas[0].params)
+    assert ops.absmax.launches > before[0]
+    assert ops.quantize_pack_fused.launches > before[1]
+    assert runs["cuda"][0] == runs["cpu"][0]
+    for x, y in zip(runs["cuda"][1:], runs["cpu"][1:]):
+        assert all(torch.equal(u.cpu(), v) for u, v in zip(tree_leaves(x),
+                                                         tree_leaves(y)))

@@ -89,8 +89,55 @@ def test_port_files_cover_the_new_modules():
                  "benchmarks_torch/bits_sweep.py",
                  "src/repro_torch/core/faults.py",
                  "src/repro_torch/core/defense.py",
-                 "src/repro_torch/checkpoint/ckpt.py"):
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "src/repro_torch/core/replica.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/publish.py",
+                 "benchmarks_torch/serve_frontier.py"):
         assert want in names, want
+
+
+def test_serving_entry_points_refuse_a_missing_card():
+    """The cache, the publisher's trainer and the serving benchmark live on
+    the card unless told ``device="cpu"``; prefill, decode, the publisher
+    and the replicas run where their parameters are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from benchmarks_torch import serve_frontier
+    from repro_torch.core.engine import FullBatchSource, RoundEngine
+    from repro_torch.core.replica import (PublishConfig, init_publisher,
+                                          init_replica, publish)
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.launch.publish import trainer_rounds
+    from repro_torch.models.attention import init_kv_cache
+    from repro_torch.models.model import init_cache, prefill
+
+    cfg = smoke_config(get_config("stablelm-1.6b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_kv_cache(cfg, 1, 8, cfg.n_layers)
+    assert init_cache(cfg, 1, 8, device="cpu")["attn"]["k"].device.type == "cpu"
+    params = init_params(0, cfg, device="cpu")
+    _, cache = prefill(params, torch.zeros((1, 4), dtype=torch.int64), cfg, 8)
+    assert cache["attn"]["k"].device.type == "cpu"
+
+    def loss(params, data):
+        return torch.sum(torch.square(params["x"] - data))
+
+    engine = RoundEngine(FullBatchSource(loss, torch.ones(2, 3)),
+                         StrategyConfig(kind="laq", bits=4), alpha=0.1)
+    p0 = {"x": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        next(trainer_rounds(engine, p0, 1))
+    p1 = next(trainer_rounds(engine, p0, 1, device="cpu"))
+    pcfg = PublishConfig(wire_backend="fused")
+    msg, st = publish(pcfg, init_publisher(p0, pcfg), p1)
+    assert st.theta_pub["x"].device.type == "cpu" and msg is not None
+    assert init_replica(p1).params["x"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_frontier.run(tiny=True)
+    assert serve_frontier.main(["--tiny"]) == 1
 
 
 def test_benchmark_and_chip_script_refuse_a_missing_card():
