@@ -127,6 +127,34 @@ CPU or to a plain version while a CUDA tensor is at hand):
       quantize_pack_fused 12 per push, counted as the ``publish`` path
       beside the trainer's ``publish_trainer``.  Peak below 76 GB.
 
+11. The MoE family at qwen3-moe-30b-a3b's published widths (d_model 2048,
+   128 experts of width 768, top-8, 32 heads over 4 kv heads of 128,
+   qk-norm, vocab 151936), random weights from seed 0.
+   a. Train: phase 4's LAQ (b=8; W=4 of 2 x 512 tokens, ``accum=2``,
+      float32 params, bfloat16 compute, fused wire), depth cut to 1 layer
+      (P = 1,245,452,544, 15 leaves; LAQ's copies of 2 layers would not
+      fit in 80 GB), 3 rounds, counted as the ``moe`` path: absmax and
+      quantize_pack_fused launch 3 x 4 x 15 = 180 times each.  Losses
+      finite, round 1 uploads from every worker, peak below 76 GB, and
+      each worker's round-1 gradient evaluated twice is bitwise equal (the
+      gather's backward and the combines' scatter-adds must not make the
+      upload decisions depend on the run).
+   b. Serve the whole model: 48 layers, bfloat16 params and compute (P =
+      30,532,122,624, 61.06 GB), phase 10a's 8 x 512 prompts, ``max_len``
+      576 and 64 greedy tokens after a warm-up session.  Prefill's logits
+      must equal ``forward`` over the prompt at the last position within
+      ``SERVE_ATOL``; peak below 76 GB.  Decode step 1 is held against
+      ``forward`` over prompt + token at full width but 2 layers, float32
+      params and compute (7.5 GB), within ``MOE_DECODE_ATOL``, the prefill
+      and that forward run with ``capacity_factor`` E/K so that no token
+      drops (decode's dense path drops none; at 48 layers in bfloat16 the
+      two paths may pick another top-8 at some layer).  Prefill ms,
+      decode ms per token and tokens/s beside their bounds.
+
+Phase 3 also runs 12 LAQ rounds of smoke qwen3-moe (float32, alpha
+``MOE_SMALL_ALPHA``) on the card and on the CPU (equal uploads, bits and
+widths, loss to rtol 1e-4), and serves it as it serves smoke stablelm.
+
 Phase 3 also serves smoke stablelm in float32 on the card and on the CPU
 (prefill and 8 greedy tokens: equal ids, logits within
 ``SERVE_SMALL_ATOL``), and replays 10 CPU rounds of the micro LM of
@@ -189,6 +217,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN = 8, 512, 64, 576
 SERVE_ATOL = 0.25             # bf16 decode vs forward (phase 10a)
 SERVE_SMALL_ATOL = 1e-4       # float32 card vs CPU logits (phase 3)
 PUBLISH_LAYERS, PUBLISH_ROUNDS, PUBLISH_TOKENS = 8, 4, 32   # phase 10b
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_ROUNDS = 1, 3       # phase 11a
+MOE_CHECK_LAYERS = 2          # phase 11b's float32 decode check
+MOE_DECODE_ATOL = 1e-3        # float32 decode vs undropped forward (11b)
+MOE_SMALL_ALPHA = 0.02        # phase 3's smoke MoE rounds (see its check)
 
 
 def log(msg):
@@ -784,21 +817,28 @@ def stochastic_small_check(torch):
             f"on card and CPU; loss max rel diff {rel:.3e}")
 
 
-def small_slice_check(torch, ops):
-    """Phase 3: the slice on a small input, on the card vs on the CPU, for
-    each method.  The card runs count kernel 4's launches by width: the
-    tighter A-LAQ must drive its 2- and 4-bit arms through the engine."""
+def small_slice_check(torch, ops, arch="stablelm-1.6b", methods=None,
+                      alpha=SMALL_ALPHA):
+    """Phase 3: the slice on a small input (the smoke variant of ``arch``),
+    on the card vs on the CPU, for each of ``methods`` (default: all of
+    ``strategies()``).  The card runs count kernel 4's launches by width:
+    the tighter A-LAQ must drive its 2- and 4-bit arms through the
+    engine.  Smoke qwen3-moe runs LAQ at MOE_SMALL_ALPHA: at 0.05 its loss
+    oscillates, and ulp differences in the gradient grow past rtol 1e-4 by
+    round 12, as between the port and the JAX package."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.engine import AccumulatingSource, RoundEngine
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.models.model import init_params, lm_worker_loss
 
-    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     params = init_params(0, cfg, device="cpu")
     corpus = lm_worker_corpus(0, W, 2, 32, cfg.vocab, device="cpu")
     for method, strategy in strategies().items():
+        if methods is not None and method not in methods:
+            continue
         runs = {}
         ops.quantize_pack_adaptive.launches_by_width = {}
         for dev in ("cpu", "cuda"):
@@ -806,7 +846,7 @@ def small_slice_check(torch, ops):
                 lm_worker_loss(cfg, W),
                 {k: v.to(dev) for k, v in corpus.items()},
                 deterministic=True, accum=ACCUM, scale=1.0)
-            runs[dev] = RoundEngine(src, strategy, alpha=SMALL_ALPHA).run(
+            runs[dev] = RoundEngine(src, strategy, alpha=alpha).run(
                 params, SMALL_ROUNDS, device=dev)
         a, b = runs["cuda"], runs["cpu"]
         if not (torch.equal(a.cum_uploads, b.cum_uploads)
@@ -824,25 +864,26 @@ def small_slice_check(torch, ops):
         if method == "alaq_tight" and not {2, 4} <= set(by_width):
             raise AssertionError(f"{method}: the engine launched kernel 4 "
                                  f"only at widths {by_width}, not at 2 and 4")
-        log(f"  ok {method} on smoke stablelm, {SMALL_ROUNDS} rounds: uploads "
+        log(f"  ok {method} on {cfg.name}, {SMALL_ROUNDS} rounds: uploads "
             f"{a.cum_uploads.tolist()} mean width of the uploads "
             f"{a.mean_bits.tolist()} equal on card and CPU; loss max rel diff "
             f"{rel:.3e}; quantize_pack_adaptive launches by width {by_width}")
 
 
 
-def serve_small_check(torch):
-    """Phase 3: smoke stablelm in float32 serves on the card as on the CPU:
-    prefill of 4 x 24 tokens and 8 decode steps fed the CPU's greedy
-    tokens, logits to SERVE_SMALL_ATOL, the greedy ids of each step equal;
-    then the greedy pair of ``jit_serve`` free-running, the same ids."""
+def serve_small_check(torch, arch="stablelm-1.6b"):
+    """Phase 3: the smoke variant of ``arch`` in float32 serves on the card
+    as on the CPU: prefill of 4 x 24 tokens and 8 decode steps fed the
+    CPU's greedy tokens, logits to SERVE_SMALL_ATOL, the greedy ids of each
+    step equal; then the greedy pair of ``jit_serve`` free-running, the
+    same ids."""
     from repro_torch import random
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.launch.serve import jit_serve
     from repro_torch.models.model import decode_step, init_params, prefill
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     params = {"cpu": init_params(0, cfg, device="cpu")}
@@ -878,7 +919,7 @@ def serve_small_check(torch):
         seqs[dev] = torch.cat(seq, 1).cpu()
     if not torch.equal(seqs["cuda"], seqs["cpu"]):
         raise AssertionError("serve: greedy ids differ card vs CPU")
-    log(f"  ok serve on smoke stablelm (float32): prefill + 8 decode steps, "
+    log(f"  ok serve on {cfg.name} (float32): prefill + 8 decode steps, "
         f"logits max abs diff card vs CPU {worst:.3e} (limit "
         f"{SERVE_SMALL_ATOL}), greedy ids equal: {seqs['cuda'][0].tolist()}")
 
@@ -1359,7 +1400,7 @@ def run_path(torch, ops, method, cfg, rounds, *, stochastic=False,
 
     n_local = STOCH_N_LOCAL if stochastic else N_LOCAL
     phase = phase or (8 if stochastic else 4)
-    log(f"phase {phase}: {method}, stablelm-1.6b at "
+    log(f"phase {phase}: {method}, {cfg.name} at "
         f"{cfg.n_layers} layers (P={n_params(cfg)}), W={W}, {n_local}x{SEQ} "
         f"tokens per worker, accum={ACCUM}, alpha={ALPHA}, fused wire")
     corpus = lm_worker_corpus(0, W, n_local, SEQ, cfg.vocab, device="cuda")
@@ -1662,6 +1703,169 @@ def publish_full(torch, ops, cfg):
     return paths, rows
 
 
+def moe_grad_is_deterministic(torch, cfg):
+    """Phase 11a: each worker's round-1 gradient (phase 4's source at the
+    initial parameters) evaluated twice must be bitwise equal."""
+    from repro_torch.core.engine import AccumulatingSource
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.models.model import init_params, lm_worker_loss
+    from repro_torch.tree import tree_leaves
+
+    params = init_params(0, cfg, device="cuda")
+    corpus = lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda")
+    source = AccumulatingSource(lm_worker_loss(cfg, W), corpus,
+                                deterministic=True, accum=ACCUM, scale=1.0)
+    batches = source.sample(0)
+    for m in range(W):
+        first = source.grad_at(params, batches, m)
+        second = source.grad_at(params, batches, m)
+        diff = [i for i, (a, b) in enumerate(zip(tree_leaves(first),
+                                                 tree_leaves(second)))
+                if not torch.equal(a, b)]
+        if diff:
+            raise AssertionError(f"phase 11a: worker {m}'s round-1 gradient "
+                                 f"differs between two evaluations in "
+                                 f"leaves {diff}")
+        del first, second
+    del params, corpus, source, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  ok: each of the {W} workers' round-1 gradients is bitwise equal "
+        f"across two evaluations")
+
+
+def moe_decode_check(torch, cfg):
+    """Phase 11b: decode step 1 against the forward over prompt + token, at
+    full width, MOE_CHECK_LAYERS layers, float32 params and compute.  The
+    prefill and the forward run with ``capacity_factor`` E/K, so that C = S
+    and no token drops: decode's dense path drops none, and a token dropped
+    in the prefill would change the cache that the decode step reads."""
+    from repro_torch import random
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+
+    B, S, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    cfg = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32,
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    params = init_params(0, cfg, device="cuda")
+    prompts = random.randint(random.PRNGKey(1, device="cuda"), (B, S), 0,
+                             cfg.vocab).long()
+    logits0, cache = prefill(params, prompts, cfg, max_len)
+    tok0 = torch.argmax(logits0[:, -1:], -1) % cfg.vocab
+    logits1, cache = decode_step(params, cache, tok0, cfg)
+    del cache
+    fwd_cfg = dataclasses.replace(cfg, kv_chunk=S + 1)
+    with torch.no_grad():
+        want = forward(params, torch.cat([prompts, tok0], 1), fwd_cfg)[:, -1:]
+    err = (logits1 - want).abs().max().item()
+    same = (torch.argmax(logits1, -1) == torch.argmax(want, -1)).float()
+    log(f"  decode step 1 vs the undropped forward over {S + 1} tokens "
+        f"({MOE_CHECK_LAYERS} layers, float32): max abs diff {err:.4e} "
+        f"(limit {MOE_DECODE_ATOL}), |logits| <= "
+        f"{want.abs().max().item():.3f}, argmax agreement "
+        f"{same.mean().item():.3f}")
+    if not err <= MOE_DECODE_ATOL:
+        raise AssertionError(f"phase 11b: decode differs from the forward by "
+                             f"{err}")
+    del params, want, logits0, logits1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def serve_moe(torch, cfg):
+    """Phase 11b: the whole qwen3-moe at its published widths, depth and
+    dtypes (bfloat16), random weights from seed 0: phase 10a's session,
+    prefill's logits against the forward over the prompt, and the bounds.
+    Decode reads every expert's weights each step (the dense path), so its
+    bound is the whole model's bytes; prefill's is the capacity-active
+    parameters' flops (E x C expert slots a row)."""
+    from repro_torch import random
+    from repro_torch.launch.serve import jit_serve
+    from repro_torch.models.config import n_params
+    from repro_torch.models.model import forward, init_params, prefill
+    from repro_torch.models.moe import capacity
+
+    B, S, T, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN
+    log(f"phase 11b: serve, {cfg.name} at {cfg.n_layers} layers "
+        f"(P={n_params(cfg)}), {cfg.param_dtype} params and compute, "
+        f"{B} x {S} prompt tokens, max_len {max_len}, {T} greedy tokens")
+    check_err = moe_decode_check(torch, cfg)
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated()
+    log(f"  init {init_s:.1f} s, weights {weights / 1e9:.2f} GB")
+    prompts = random.randint(random.PRNGKey(1, device="cuda"), (B, S), 0,
+                             cfg.vocab).long()
+    pre, dec = jit_serve(cfg, max_len)
+    _greedy_session(torch, pre, dec, params, prompts, T)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, step_ms, ids, cache = _greedy_session(torch, pre, dec, params,
+                                                      prompts, T)
+    peak = torch.cuda.max_memory_allocated()
+    k = cache["attn"]["k"]
+    cache_shape, cache_dtype = tuple(k.shape), str(k.dtype)
+    cache_gb = 2 * k.numel() * k.element_size() / 1e9
+    del cache, k
+    decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    tok_s = B * T / (sum(step_ms) / 1e3)
+    if not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+        raise AssertionError("phase 11b: greedy ids out of the vocabulary")
+
+    logits0, cache = prefill(params, prompts, cfg, max_len)
+    del cache
+    with torch.no_grad():
+        want = forward(params, prompts, cfg)[:, -1:]
+    err = (logits0 - want).abs().max().item()
+    log(f"  prefill vs forward over the {S} prompt tokens: max abs diff "
+        f"{err:.4e} (limit {SERVE_ATOL})")
+    if not err <= SERVE_ATOL:
+        raise AssertionError(f"phase 11b: prefill differs from the forward "
+                             f"by {err}")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del want, logits0, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    D, E, Fd, L = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_layers
+    C = capacity(S, cfg)
+    head = D * cfg.padded_vocab()
+    block = n_params(cfg) - 2 * head - D
+    per_attn = (block // L - D * E - 3 * E * D * Fd - 2 * D)
+    active = L * (per_attn + D * E + (E * C / S) * 3 * D * Fd)
+    attn_flops = (2 * 2 * B * cfg.n_heads * cfg.hd * S * (S + 1) // 2 * L)
+    prefill_bound = (2 * active * B * S + attn_flops) / BF16_OPS_PER_S * 1e3
+    decode_bytes = 2 * (block + head) + cache_gb * 1e9
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    row = dict(prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound,
+               decode_ms_per_token_median=decode_ms,
+               decode_bound_ms=decode_bound, tokens_per_s=tok_s,
+               tokens_per_s_bound=B * 1e3 / decode_bound,
+               peak_gb=peak / 1e9, weights_gb=weights / 1e9,
+               cache_shape=cache_shape, cache_dtype=cache_dtype,
+               cache_gb=cache_gb, prefill_vs_forward_max_abs=err,
+               decode_vs_forward_max_abs_f32_2_layers=check_err,
+               capacity=C, init_s=init_s)
+    log(f"  ok serve: prefill {prefill_ms:.2f} ms (bound {prefill_bound:.2f} "
+        f"ms: {2 * active * B * S:.4e} flops of {active:.4e} capacity-active "
+        f"params (C={C}) + {attn_flops:.4e} attention flops over "
+        f"{BF16_OPS_PER_S:.3e}/s), decode {decode_ms:.3f} ms per token, "
+        f"median of {T} (bound {decode_bound:.3f} ms: "
+        f"{decode_bytes / 1e9:.3f} GB over {HBM_BYTES_PER_S:.3e} B/s), "
+        f"{tok_s:.1f} tokens/s (bound {B * 1e3 / decode_bound:.1f}); peak "
+        f"{peak / 1e9:.2f} GB (weights {weights / 1e9:.2f} GB); cache "
+        f"{cache_shape} {cache_dtype} {cache_gb:.3f} GB; step ms min "
+        f"{min(step_ms):.3f} max {max(step_ms):.3f}")
+    if peak >= PEAK_LIMIT:
+        raise AssertionError(f"phase 11b: peak {peak} B >= {PEAK_LIMIT:.0f}")
+    return row
+
+
 def expect_launches(method, launches, want):
     for name in KERNELS:
         if launches[name] != want.get(name, 0):
@@ -1741,6 +1945,8 @@ def main() -> int:
         robust_small_check(torch, tmpdir)
     serve_small_check(torch)
     publish_small_check(torch, ops)
+    small_slice_check(torch, ops, MOE_ARCH, ("laq",), MOE_SMALL_ALPHA)
+    serve_small_check(torch, MOE_ARCH)
 
     paths = {
         "laq": (cfg, {"absmax": 1, "quantize_pack_fused": 1}),
@@ -1863,6 +2069,27 @@ def main() -> int:
         torch, ops, dataclasses.replace(cfg, n_layers=PUBLISH_LAYERS))
     by_path.update(publish_paths)
     log("  " + json.dumps({"serve": serve_row, "publish": publish_rows}))
+
+    moe_cfg = get_config(MOE_ARCH)
+    train_cfg = dataclasses.replace(moe_cfg, n_layers=MOE_TRAIN_LAYERS,
+                                    param_dtype=torch.float32)
+    n_leaves = 15
+    launches, recs, round_ms, peaks, _ = run_path(
+        torch, ops, "laq", train_cfg, MOE_TRAIN_ROUNDS, phase="11a")
+    expect_launches("moe", launches, {
+        "absmax": MOE_TRAIN_ROUNDS * W * n_leaves,
+        "quantize_pack_fused": MOE_TRAIN_ROUNDS * W * n_leaves})
+    by_path["moe"] = launches
+    moe_train_row = dict(round_ms=round_ms, peak_gb=max(peaks) / 1e9,
+                         losses=[r[0].item() for r in recs],
+                         cum_uploads=[int(r[2]) for r in recs])
+    log(f"  ok moe: launches {launches}, losses finite, round-1 uploads {W}; "
+        f"round ms {[round(x, 1) for x in round_ms]}, max peak "
+        f"{max(peaks) / 1e9:.2f} GB")
+    moe_grad_is_deterministic(torch, train_cfg)
+    moe_serve_row = serve_moe(torch, moe_cfg)
+    log("  " + json.dumps({"moe_train": moe_train_row,
+                           "moe_serve": moe_serve_row}))
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {

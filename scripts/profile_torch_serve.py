@@ -1,13 +1,15 @@
 """Where the port's serving steps spend their time on the GPU.
 
-    python3 scripts/profile_torch_serve.py [--layers 24]
-        [--param-dtype bfloat16|float32] [--steps 8] [--top 15]
+    python3 scripts/profile_torch_serve.py [--arch stablelm-1.6b]
+        [--layers N] [--param-dtype bfloat16|float32] [--steps 8] [--top 15]
 
 Serves ``chip_smoke.py`` phase 10's setting: stablelm-1.6b at its
-published widths, bfloat16 compute, random weights from seed 0, prompts
-of 8 x 512 tokens, ``max_len`` 576, through ``launch/serve.py``'s greedy
-steps.  ``--param-dtype float32 --layers 8`` is phase 10b's replica (its
-float32 weights are cast to bfloat16 in every product).  After a warm-up
+published widths and depth (24 layers), bfloat16 compute, random weights
+from seed 0, prompts of 8 x 512 tokens, ``max_len`` 576, through
+``launch/serve.py``'s greedy steps.  ``--param-dtype float32 --layers 8``
+is phase 10b's replica (its float32 weights are cast to bfloat16 in every
+product); ``--arch qwen3-moe-30b-a3b`` is phase 11b's whole MoE model (48
+layers).  After a warm-up
 session it times the prefill and ``--steps`` decode steps on the host
 clock (each closed by ``torch.cuda.synchronize()``), then profiles one
 prefill and ``--steps`` decode steps under ``torch.profiler`` (CPU + CUDA
@@ -58,7 +60,9 @@ def busy_share(prof, wall_ms: float):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the config's)")
     ap.add_argument("--param-dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--steps", type=int, default=8)
@@ -70,8 +74,8 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
-                              n_layers=args.layers,
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
                               param_dtype=getattr(torch, args.param_dtype))
     params = init_params(0, cfg, device="cuda")
     prompts = random.randint(random.PRNGKey(1, device="cuda"),
@@ -94,7 +98,7 @@ def main():
         tok, cache = dec(params, cache, tok)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"stablelm-1.6b, {args.layers} layers, {args.param_dtype} params, "
+    print(f"{cfg.name}, {cfg.n_layers} layers, {args.param_dtype} params, "
           f"bfloat16 compute, {BATCH}x{PROMPT} prompts: prefill "
           f"{(t1 - t0) * 1e3:.2f} ms, decode {(t2 - t1) * 1e3 / args.steps:.3f}"
           f" ms per step (mean of {args.steps})")

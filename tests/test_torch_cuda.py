@@ -569,3 +569,75 @@ def test_publisher_on_the_card_equals_the_cpu(cuda, policy):
     for x, y in zip(runs["cuda"][1:], runs["cpu"][1:]):
         assert all(torch.equal(u.cpu(), v) for u, v in zip(tree_leaves(x),
                                                          tree_leaves(y)))
+
+
+def _moe_smoke(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-moe-30b-a3b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = {"cpu": init_params(0, cfg, device="cpu")}
+    params["cuda"] = tree_map(lambda l: l.to(cuda), params["cpu"])
+    return cfg, params
+
+
+def test_moe_laq_on_the_card_equals_the_cpu(cuda):
+    """Smoke qwen3-moe in float32: 12 deterministic LAQ rounds (b=8, fused
+    wire, lm_frontier's criterion and 1/t stepsize, alpha 0.02, as in
+    ``tests/test_torch_moe.py``) give the same uploads and bits on the card
+    as on the CPU, losses to rtol 1e-4, and the card launches kernels 1
+    and 2 once per leaf, worker and round."""
+    from repro_torch.core.adaptive import EtaSchedule
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.engine import AccumulatingSource, RoundEngine
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.models.model import lm_worker_loss
+
+    cfg, params = _moe_smoke(cuda)
+    strat = StrategyConfig(kind="laq", bits=8, per_leaf_radius=True,
+                           wire_backend="fused",
+                           criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
+                           eta_schedule=EtaSchedule("inv_t", t0=30.0))
+    corpus = lm_worker_corpus(0, 4, 2, 32, cfg.vocab, device="cpu")
+    runs = {}
+    before = (ops.absmax.launches, ops.quantize_pack_fused.launches)
+    for d in ("cpu", "cuda"):
+        src = AccumulatingSource(lm_worker_loss(cfg, 4),
+                                 {k: v.to(d) for k, v in corpus.items()},
+                                 deterministic=True, accum=2, scale=1.0)
+        runs[d] = RoundEngine(src, strat, alpha=0.02).run(params[d], 12,
+                                                          device=d)
+    assert (ops.absmax.launches - before[0],
+            ops.quantize_pack_fused.launches - before[1]) == (12 * 4 * 15,) * 2
+    a, b = runs["cuda"], runs["cpu"]
+    assert torch.equal(a.cum_uploads, b.cum_uploads)
+    assert torch.equal(a.cum_bits, b.cum_bits)
+    assert int(b.cum_uploads[-1]) < 4 * 12
+    torch.testing.assert_close(a.loss, b.loss, rtol=1e-4, atol=0)
+
+
+def test_moe_serve_on_the_card_equals_the_cpu(cuda):
+    """Smoke qwen3-moe in float32: prefill (the capacity path) and 8 decode
+    steps (the dense path) fed the CPU's greedy tokens give logits within
+    1e-4 of the CPU's and the same greedy ids."""
+    from repro_torch import random
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = _moe_smoke(cuda)
+    prompts = random.randint(random.PRNGKey(1, device="cpu"), (4, 24), 0,
+                             cfg.vocab).long()
+    out = {d: prefill(params[d], prompts.to(d), cfg, 32)
+           for d in ("cpu", "cuda")}
+    for step in range(9):
+        a, b = out["cuda"][0].cpu(), out["cpu"][0]
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        ids = torch.argmax(b[:, -1:], -1) % cfg.vocab
+        assert torch.equal(torch.argmax(a[:, -1:], -1) % cfg.vocab, ids)
+        if step < 8:
+            out = {d: decode_step(params[d], out[d][1], ids.to(d), cfg)
+                   for d in ("cpu", "cuda")}

@@ -93,8 +93,34 @@ def test_port_files_cover_the_new_modules():
                  "src/repro_torch/core/replica.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/publish.py",
-                 "benchmarks_torch/serve_frontier.py"):
+                 "benchmarks_torch/serve_frontier.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/configs/qwen3_8b.py",
+                 "src/repro_torch/configs/yi_6b.py",
+                 "src/repro_torch/configs/yi_9b.py",
+                 "src/repro_torch/configs/chameleon_34b.py",
+                 "src/repro_torch/configs/musicgen_medium.py",
+                 "src/repro_torch/configs/qwen3_moe_30b_a3b.py",
+                 "src/repro_torch/configs/phi3p5_moe_42b.py"):
         assert want in names, want
+
+
+def test_moe_entry_points_refuse_a_missing_card():
+    """A MoE model's parameters and cache live on the card unless told
+    ``device="cpu"``; its loss runs where its parameters are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.models.model import init_cache, lm_loss
+    cfg = smoke_config(get_config("qwen3-moe-30b-a3b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(cfg, 1, 8)
+    params = init_params(0, cfg, device="cpu")
+    assert params["blocks"]["moe"]["w_gate"].device.type == "cpu"
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    loss = lm_loss(params, {"tokens": tokens, "targets": tokens}, cfg)
+    assert loss.device.type == "cpu"
 
 
 def test_serving_entry_points_refuse_a_missing_card():

@@ -10,10 +10,12 @@ port runs on four gloo ranks.  Both start from the same parameters (numpy,
 carried into the port by ``repro_torch.convert``) and the same batch;
 worker m takes rows [2m, 2m + 2), whose tokens come from vocabularies of
 different sizes, so that the skip rule (xi = 0.3 without the quantization
-slack) keeps some workers and not others after step 1.  Three
-configurations of 3 steps: the float wire, the packed wire at b=4 and the
+slack) keeps some workers and not others after step 1.  Four
+configurations of 3 steps: the float wire, the packed wire at b=4, the
 packed wire with the adaptive schedule on the grid (2, 4, 8), whose
-absolute thresholds give the workers different widths; and both wires
+absolute thresholds give the workers different widths, and the packed
+wire at b=4 on smoke qwen3-moe-30b-a3b (15 leaves; its router's aux enters
+the loss and the gradient through ``lm_loss``); and both wires
 with bernoulli participation (p=0.5) and the defense's validation and
 norm gate, where each worker reads its slot of the round's cohort and an
 absent or rejected worker is masked off the wire like a skip.  All run
@@ -65,20 +67,22 @@ from repro.launch.train import init_train_state, make_train_step
 from repro.models import init_params
 from repro.optim import sgd
 
-cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
-                          param_dtype=jnp.float32, compute_dtype=jnp.float32)
 # jax.make_mesh gives Explicit axes on jax 0.9, under which the embedding
 # gather of models/stack.py raises; a Mesh of Auto axes runs the step
 mesh = Mesh(np.array(jax.devices()).reshape(C.TRAIN_W, 1), ("data", "model"))
-abstract = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), cfg))
-names = {jax.tree_util.keystr(p, simple=True, separator="."): l.shape
-         for p, l in jax.tree_util.tree_flatten_with_path(abstract)[0]}
-params0 = C.numpy_params(names)
-batch = jax.device_put({k: jnp.asarray(v, jnp.int32)
-                        for k, v in C.train_batch(cfg.vocab).items()},
-                       NamedSharding(mesh, P("data", None)))
 out = {}
 for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
+    arch = C.TRAIN_ARCHS.get(config, "stablelm-1.6b")
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype=jnp.float32,
+                              compute_dtype=jnp.float32)
+    abstract = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), cfg))
+    names = {jax.tree_util.keystr(p, simple=True, separator="."): l.shape
+             for p, l in jax.tree_util.tree_flatten_with_path(abstract)[0]}
+    params0 = C.numpy_params(names)
+    batch = jax.device_put({k: jnp.asarray(v, jnp.int32)
+                            for k, v in C.train_batch(cfg.vocab).items()},
+                           NamedSharding(mesh, P("data", None)))
     sched = (BitSchedule(kind="radius", grid=C.GRID,
                          thresholds=C.TRAIN_THRESHOLDS)
              if config == "packed_adaptive" else None)
@@ -167,7 +171,8 @@ def test_loss_and_params_match_reference(runs, config):
     np.testing.assert_allclose(got[0][f"{config}/loss"],
                                want[f"{config}/loss"], rtol=1e-4)
     w, g = _params(want, config), _params(got[0], config)
-    assert w.keys() == g.keys() and len(w) == 12
+    assert w.keys() == g.keys()
+    assert len(w) == (15 if config in C.TRAIN_ARCHS else 12)
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
                                    err_msg=k)

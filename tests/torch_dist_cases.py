@@ -84,7 +84,10 @@ TRAIN_MICROBATCH = 2
 TRAIN_CRITERION = dict(D=10, xi=0.3, t_bar=100, include_quant_error=False)
 TRAIN_ETA = dict(kind="inv_t", t0=30.0)
 TRAIN_THRESHOLDS = (0.05, 0.07)     # absolute radius thresholds of A-LAQ
-TRAIN_CONFIGS = ("float", "packed", "packed_adaptive")
+TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed")
+# the model of each configuration (smoke variant, float32): stablelm unless
+# named here
+TRAIN_ARCHS = {"moe_packed": "qwen3-moe-30b-a3b"}
 # bernoulli participation with validation and the norm gate, on both wires
 TRAIN_DEFENDED = ("defended_float", "defended_packed")
 TRAIN_PARTICIPATION = dict(participation="bernoulli", participation_p=0.5,
@@ -260,16 +263,17 @@ def rank_train(workers, out_dir):
     from repro_torch.models.model import init_params
     from repro_torch.optim.optimizers import sgd
 
-    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
-                              param_dtype=torch.float32,
-                              compute_dtype=torch.float32)
-    shapes = {k: tuple(v.shape) for k, v in
-              flat_names(init_params(0, cfg, device="cpu")).items()}
-    batch = worker_batch({k: torch.from_numpy(v)
-                          for k, v in train_batch(cfg.vocab).items()},
-                         workers)
     out = {}
     for config in TRAIN_CONFIGS + TRAIN_DEFENDED:
+        arch = TRAIN_ARCHS.get(config, "stablelm-1.6b")
+        cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                  param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+        shapes = {k: tuple(v.shape) for k, v in
+                  flat_names(init_params(0, cfg, device="cpu")).items()}
+        batch = worker_batch({k: torch.from_numpy(v)
+                              for k, v in train_batch(cfg.vocab).items()},
+                             workers)
         sched = (BitSchedule(kind="radius", grid=GRID,
                              thresholds=TRAIN_THRESHOLDS)
                  if config == "packed_adaptive" else None)
