@@ -151,9 +151,36 @@ CPU or to a plain version while a CUDA tensor is at hand):
       two paths may pick another top-8 at some layer).  Prefill ms,
       decode ms per token and tokens/s beside their bounds.
 
-Phase 3 also runs 12 LAQ rounds of smoke qwen3-moe (float32, alpha
-``MOE_SMALL_ALPHA``) on the card and on the CPU (equal uploads, bits and
-widths, loss to rtol 1e-4), and serves it as it serves smoke stablelm.
+12. The Mamba2 families, random weights from seed 0, phase 4's LAQ
+   settings (b=8; W=4 of 2 x 512 tokens, ``accum=2``, float32 params,
+   bfloat16 compute, fused wire).
+   a. Train zamba2-2.7b (hybrid: d_model 2560, d_inner 5120, 80 SSM heads
+      of 64, state 64, conv 4; one shared block of 32 heads of 80 and
+      d_ff 10240; vocab 32000) cut to 24 Mamba layers, so the shared
+      block is applied 4 times (P = 1,226,023,040 in 29 leaves), 3
+      rounds, counted as the ``hybrid`` path: absmax and
+      quantize_pack_fused launch 3 x 4 x 29 = 348 times each.  Losses
+      finite, round 1 uploads from every worker, peak below 76 GB, and
+      each worker's round-1 gradient evaluated twice is bitwise equal (the
+      cumsum, the shared block's accumulated gradient, the embedding's
+      scatter).
+   b. Serve zamba2-2.7b whole: 54 layers in bfloat16, phase 10a's session
+      (8 x 512 prompts, ``max_len`` 576, 64 greedy tokens after a warm-up),
+      the cache of 9 KV rows and 54 SSM states; prefill vs ``forward``
+      within ``SERVE_ATOL``; decode step 1 vs ``forward`` over prompt +
+      token at full width and 6 layers (one shared application), float32,
+      prompts of 8 x 127 tokens (one SSD chunk on both sides), within
+      ``MAMBA_DECODE_ATOL``.  Prefill ms, decode ms a token and tokens/s
+      beside their bounds.
+   c. mamba2-130m (ssm) whole, 24 layers (P = 167,610,816, 20 leaves): 3
+      LAQ rounds as 12a, the ``ssm`` path, 240 launches each of absmax and
+      quantize_pack_fused, the gradient twice; then served as 12b, its
+      decode check at all 24 layers.
+
+Phase 3 also runs 12 LAQ rounds each of smoke qwen3-moe, mamba2-130m and
+zamba2-2.7b (float32, alpha ``MODEL_SMALL_ALPHA``) on the card and on the
+CPU (equal uploads, bits and widths, loss to rtol 1e-4), and serves each
+as it serves smoke stablelm.
 
 Phase 3 also serves smoke stablelm in float32 on the card and on the CPU
 (prefill and 8 greedy tokens: equal ids, logits within
@@ -221,7 +248,13 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_TRAIN_LAYERS, MOE_TRAIN_ROUNDS = 1, 3       # phase 11a
 MOE_CHECK_LAYERS = 2          # phase 11b's float32 decode check
 MOE_DECODE_ATOL = 1e-3        # float32 decode vs undropped forward (11b)
-MOE_SMALL_ALPHA = 0.02        # phase 3's smoke MoE rounds (see its check)
+MODEL_SMALL_ALPHA = 0.02      # phase 3's smoke MoE and Mamba2 rounds
+HYBRID_ARCH, SSM_ARCH = "zamba2-2.7b", "mamba2-130m"
+HYBRID_TRAIN_LAYERS, MAMBA_TRAIN_ROUNDS = 24, 3  # phase 12a (and 12c's rounds)
+MAMBA_LEAVES = {HYBRID_ARCH: 29, SSM_ARCH: 20}
+HYBRID_CHECK_LAYERS = 6       # phase 12b's float32 decode check
+MAMBA_CHECK_PROMPT = 127      # one SSD chunk in the prefill and the forward
+MAMBA_DECODE_ATOL = 1e-4      # float32 decode vs forward (12b, 12c)
 
 
 def log(msg):
@@ -823,7 +856,7 @@ def small_slice_check(torch, ops, arch="stablelm-1.6b", methods=None,
     on the card vs on the CPU, for each of ``methods`` (default: all of
     ``strategies()``).  The card runs count kernel 4's launches by width:
     the tighter A-LAQ must drive its 2- and 4-bit arms through the
-    engine.  Smoke qwen3-moe runs LAQ at MOE_SMALL_ALPHA: at 0.05 its loss
+    engine.  Smoke qwen3-moe runs LAQ at MODEL_SMALL_ALPHA: at 0.05 its loss
     oscillates, and ulp differences in the gradient grow past rtol 1e-4 by
     round 12, as between the port and the JAX package."""
     from repro_torch.configs import get_config, smoke_config
@@ -1703,9 +1736,10 @@ def publish_full(torch, ops, cfg):
     return paths, rows
 
 
-def moe_grad_is_deterministic(torch, cfg):
-    """Phase 11a: each worker's round-1 gradient (phase 4's source at the
-    initial parameters) evaluated twice must be bitwise equal."""
+def grad_is_deterministic(torch, cfg, phase):
+    """Phases 11a, 12a and 12c: each worker's round-1 gradient (phase 4's
+    source at the initial parameters) evaluated twice must be bitwise
+    equal."""
     from repro_torch.core.engine import AccumulatingSource
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.models.model import init_params, lm_worker_loss
@@ -1723,9 +1757,9 @@ def moe_grad_is_deterministic(torch, cfg):
                                                  tree_leaves(second)))
                 if not torch.equal(a, b)]
         if diff:
-            raise AssertionError(f"phase 11a: worker {m}'s round-1 gradient "
-                                 f"differs between two evaluations in "
-                                 f"leaves {diff}")
+            raise AssertionError(f"phase {phase}: worker {m}'s round-1 "
+                                 f"gradient differs between two "
+                                 f"evaluations in leaves {diff}")
         del first, second
     del params, corpus, source, batches
     gc.collect()
@@ -1775,24 +1809,17 @@ def moe_decode_check(torch, cfg):
     return err
 
 
-def serve_moe(torch, cfg):
-    """Phase 11b: the whole qwen3-moe at its published widths, depth and
-    dtypes (bfloat16), random weights from seed 0: phase 10a's session,
-    prefill's logits against the forward over the prompt, and the bounds.
-    Decode reads every expert's weights each step (the dense path), so its
-    bound is the whole model's bytes; prefill's is the capacity-active
-    parameters' flops (E x C expert slots a row)."""
+def _serve_whole(torch, cfg, phase):
+    """Phase 10a's session on ``cfg`` at its depth and dtypes, random
+    weights from seed 0, after a warm-up session of the same shape; then
+    prefill's logits against ``forward`` over the prompt at the last
+    position, within SERVE_ATOL, and the peak below PEAK_LIMIT.  Returns
+    the timings, the peak, the weights' and the cache's bytes."""
     from repro_torch import random
     from repro_torch.launch.serve import jit_serve
-    from repro_torch.models.config import n_params
     from repro_torch.models.model import forward, init_params, prefill
-    from repro_torch.models.moe import capacity
 
     B, S, T, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN
-    log(f"phase 11b: serve, {cfg.name} at {cfg.n_layers} layers "
-        f"(P={n_params(cfg)}), {cfg.param_dtype} params and compute, "
-        f"{B} x {S} prompt tokens, max_len {max_len}, {T} greedy tokens")
-    check_err = moe_decode_check(torch, cfg)
     t0 = time.perf_counter()
     params = init_params(0, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1808,14 +1835,14 @@ def serve_moe(torch, cfg):
     prefill_ms, step_ms, ids, cache = _greedy_session(torch, pre, dec, params,
                                                       prompts, T)
     peak = torch.cuda.max_memory_allocated()
-    k = cache["attn"]["k"]
-    cache_shape, cache_dtype = tuple(k.shape), str(k.dtype)
-    cache_gb = 2 * k.numel() * k.element_size() / 1e9
-    del cache, k
-    decode_ms = sorted(step_ms)[len(step_ms) // 2]
-    tok_s = B * T / (sum(step_ms) / 1e3)
+    leaves = {f"{g}.{k}": v for g in ("attn", "mamba")
+              for k, v in cache.get(g, {}).items()}
+    cache_spec = {k: [list(v.shape), str(v.dtype)] for k, v in leaves.items()}
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in leaves.items()}
+    del cache, leaves
     if not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
-        raise AssertionError("phase 11b: greedy ids out of the vocabulary")
+        raise AssertionError(f"phase {phase}: greedy ids out of the "
+                             f"vocabulary")
 
     logits0, cache = prefill(params, prompts, cfg, max_len)
     del cache
@@ -1825,12 +1852,39 @@ def serve_moe(torch, cfg):
     log(f"  prefill vs forward over the {S} prompt tokens: max abs diff "
         f"{err:.4e} (limit {SERVE_ATOL})")
     if not err <= SERVE_ATOL:
-        raise AssertionError(f"phase 11b: prefill differs from the forward "
-                             f"by {err}")
+        raise AssertionError(f"phase {phase}: prefill differs from the "
+                             f"forward by {err}")
     peak = max(peak, torch.cuda.max_memory_allocated())
     del want, logits0, params
     gc.collect()
     torch.cuda.empty_cache()
+    if peak >= PEAK_LIMIT:
+        raise AssertionError(f"phase {phase}: peak {peak} B >= "
+                             f"{PEAK_LIMIT:.0f}")
+    return dict(prefill_ms=prefill_ms, step_ms=step_ms,
+                decode_ms=sorted(step_ms)[len(step_ms) // 2],
+                tok_s=B * T / (sum(step_ms) / 1e3), peak=peak,
+                weights=weights, cache_spec=cache_spec,
+                cache_bytes=cache_bytes, err=err, init_s=init_s)
+
+
+def serve_moe(torch, cfg):
+    """Phase 11b: the whole qwen3-moe at its published widths, depth and
+    dtypes (bfloat16), random weights from seed 0: phase 10a's session,
+    prefill's logits against the forward over the prompt, and the bounds.
+    Decode reads every expert's weights each step (the dense path), so its
+    bound is the whole model's bytes; prefill's is the capacity-active
+    parameters' flops (E x C expert slots a row)."""
+    from repro_torch.models.config import n_params
+    from repro_torch.models.moe import capacity
+
+    B, S, T, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN
+    log(f"phase 11b: serve, {cfg.name} at {cfg.n_layers} layers "
+        f"(P={n_params(cfg)}), {cfg.param_dtype} params and compute, "
+        f"{B} x {S} prompt tokens, max_len {max_len}, {T} greedy tokens")
+    check_err = moe_decode_check(torch, cfg)
+    r = _serve_whole(torch, cfg, "11b")
+    cache_gb = sum(r["cache_bytes"].values()) / 1e9
 
     D, E, Fd, L = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_layers
     C = capacity(S, cfg)
@@ -1842,27 +1896,161 @@ def serve_moe(torch, cfg):
     prefill_bound = (2 * active * B * S + attn_flops) / BF16_OPS_PER_S * 1e3
     decode_bytes = 2 * (block + head) + cache_gb * 1e9
     decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
-    row = dict(prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound,
-               decode_ms_per_token_median=decode_ms,
-               decode_bound_ms=decode_bound, tokens_per_s=tok_s,
+    row = dict(prefill_ms=r["prefill_ms"], prefill_bound_ms=prefill_bound,
+               decode_ms_per_token_median=r["decode_ms"],
+               decode_bound_ms=decode_bound, tokens_per_s=r["tok_s"],
                tokens_per_s_bound=B * 1e3 / decode_bound,
-               peak_gb=peak / 1e9, weights_gb=weights / 1e9,
-               cache_shape=cache_shape, cache_dtype=cache_dtype,
-               cache_gb=cache_gb, prefill_vs_forward_max_abs=err,
+               peak_gb=r["peak"] / 1e9, weights_gb=r["weights"] / 1e9,
+               cache=r["cache_spec"], cache_gb=cache_gb,
+               prefill_vs_forward_max_abs=r["err"],
                decode_vs_forward_max_abs_f32_2_layers=check_err,
-               capacity=C, init_s=init_s)
-    log(f"  ok serve: prefill {prefill_ms:.2f} ms (bound {prefill_bound:.2f} "
-        f"ms: {2 * active * B * S:.4e} flops of {active:.4e} capacity-active "
-        f"params (C={C}) + {attn_flops:.4e} attention flops over "
-        f"{BF16_OPS_PER_S:.3e}/s), decode {decode_ms:.3f} ms per token, "
-        f"median of {T} (bound {decode_bound:.3f} ms: "
-        f"{decode_bytes / 1e9:.3f} GB over {HBM_BYTES_PER_S:.3e} B/s), "
-        f"{tok_s:.1f} tokens/s (bound {B * 1e3 / decode_bound:.1f}); peak "
-        f"{peak / 1e9:.2f} GB (weights {weights / 1e9:.2f} GB); cache "
-        f"{cache_shape} {cache_dtype} {cache_gb:.3f} GB; step ms min "
-        f"{min(step_ms):.3f} max {max(step_ms):.3f}")
-    if peak >= PEAK_LIMIT:
-        raise AssertionError(f"phase 11b: peak {peak} B >= {PEAK_LIMIT:.0f}")
+               capacity=C, init_s=r["init_s"])
+    log(f"  ok serve: prefill {r['prefill_ms']:.2f} ms (bound "
+        f"{prefill_bound:.2f} ms: {2 * active * B * S:.4e} flops of "
+        f"{active:.4e} capacity-active params (C={C}) + {attn_flops:.4e} "
+        f"attention flops over {BF16_OPS_PER_S:.3e}/s), decode "
+        f"{r['decode_ms']:.3f} ms per token, median of {T} (bound "
+        f"{decode_bound:.3f} ms: {decode_bytes / 1e9:.3f} GB over "
+        f"{HBM_BYTES_PER_S:.3e} B/s), {r['tok_s']:.1f} tokens/s (bound "
+        f"{B * 1e3 / decode_bound:.1f}); peak {r['peak'] / 1e9:.2f} GB "
+        f"(weights {r['weights'] / 1e9:.2f} GB); cache {r['cache_spec']} "
+        f"{cache_gb:.3f} GB; step ms min {min(r['step_ms']):.3f} max "
+        f"{max(r['step_ms']):.3f}")
+    return row
+
+
+def recurrent_decode_check(torch, cfg, layers, phase):
+    """Phases 12b and 12c: decode step 1 against the forward over prompt +
+    token, at full width, ``layers`` layers, float32 params and compute,
+    with prompts of SERVE_BATCH x MAMBA_CHECK_PROMPT tokens: the prefill
+    and the forward then each run one SSD chunk (Q = S), and a prompt of
+    more than ``ssm_chunk`` tokens would have to be a multiple of it."""
+    from repro_torch import random
+    from repro_torch.models.config import n_params
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+
+    B, S = SERVE_BATCH, MAMBA_CHECK_PROMPT
+    cfg = dataclasses.replace(cfg, n_layers=layers,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = init_params(0, cfg, device="cuda")
+    prompts = random.randint(random.PRNGKey(1, device="cuda"), (B, S), 0,
+                             cfg.vocab).long()
+    logits0, cache = prefill(params, prompts, cfg, SERVE_MAX_LEN)
+    tok0 = torch.argmax(logits0[:, -1:], -1) % cfg.vocab
+    logits1, cache = decode_step(params, cache, tok0, cfg)
+    del cache
+    with torch.no_grad():
+        want = forward(params, torch.cat([prompts, tok0], 1), cfg)[:, -1:]
+    err = (logits1 - want).abs().max().item()
+    same = (torch.argmax(logits1, -1) == torch.argmax(want, -1)).float()
+    log(f"  decode step 1 vs forward over {S + 1} tokens ({layers} layers, "
+        f"P={n_params(cfg)}, float32): max abs diff {err:.4e} (limit "
+        f"{MAMBA_DECODE_ATOL}), |logits| <= {want.abs().max().item():.3f}, "
+        f"argmax agreement {same.mean().item():.3f}")
+    if not err <= MAMBA_DECODE_ATOL:
+        raise AssertionError(f"phase {phase}: decode differs from the forward "
+                             f"by {err}")
+    del params, want, logits0, logits1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_ssd(torch, cfg):
+    """One ``ssd_chunked`` call at the prefill's shapes (SERVE_BATCH x
+    SERVE_PROMPT tokens; x, B and C in the compute dtype, dt float32), CUDA
+    events over 5 calls: its ms and its bound, the larger of its matmul
+    flops over the bf16 rate and the bytes of its inputs and outputs
+    over the HBM rate."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q, cdt = min(cfg.ssm_chunk, S), cfg.compute_dtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(cdt)
+    dt = 0.1 * torch.rand((B, S, H), generator=gen, device="cuda")
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda").to(cdt)
+              for _ in range(2))
+    with torch.no_grad():
+        ms = time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk),
+                     iters=5, warmup=1)
+    flops = 2 * B * S * (Q * N + Q * H * P + 2 * H * N * P)
+    esz = x.element_size()
+    nbytes = (2 * B * S * H * P * esz + 4 * B * S * H + 2 * B * S * N * esz
+              + 4 * B * H * P * N)
+    bound = max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    del x, dt, Bm, Cm
+    torch.cuda.empty_cache()
+    return ms, bound
+
+
+def serve_recurrent(torch, cfg, phase, check_layers):
+    """Phases 12b and 12c: a Mamba2 model whole, at its published widths,
+    depth and dtypes (bfloat16), random weights from seed 0: the decode
+    check at ``check_layers`` layers in float32, then phase 10a's session,
+    prefill's logits against the forward over the prompt, and the bounds.
+    Prefill's bound is the larger of its matmul and SSD flops (the shared
+    block's once per application) over the bf16 rate and the weights'
+    bytes over the HBM rate; decode's is the weights, the cache and the
+    SSM state written back, over the HBM rate."""
+    from repro_torch.models.config import n_params
+    from repro_torch.models.stack import n_shared_applications
+
+    B, S, T, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_MAX_LEN
+    log(f"phase {phase}: serve, {cfg.name} at {cfg.n_layers} layers "
+        f"(P={n_params(cfg)}), {cfg.param_dtype} params and compute, "
+        f"{B} x {S} prompt tokens, max_len {max_len}, {T} greedy tokens")
+    check_err = recurrent_decode_check(torch, cfg, check_layers, phase)
+    r = _serve_whole(torch, cfg, phase)
+    cache_bytes = sum(r["cache_bytes"].values())
+
+    D, L = cfg.d_model, cfg.n_layers
+    di, H, P, GN = (cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim,
+                    cfg.ssm_n_groups * cfg.ssm_state)
+    Q, n_sh = min(cfg.ssm_chunk, S), n_shared_applications(cfg)
+    mamba_mm = D * (2 * di + 2 * GN + H) + di * D        # a layer, a token
+    shared_mm = (2 * D * cfg.n_heads * cfg.hd + 2 * D * cfg.n_kv_heads
+                 * cfg.hd + 3 * D * cfg.d_ff)
+    ssd = 2 * (Q * GN + Q * H * P + 2 * H * GN * P)       # a layer, a token
+    attn_flops = 2 * 2 * B * cfg.n_heads * cfg.hd * S * (S + 1) // 2 * n_sh
+    prefill_flops = (2 * B * S * (L * mamba_mm + n_sh * shared_mm)
+                     + B * S * L * ssd + attn_flops
+                     + 2 * B * D * cfg.padded_vocab())
+    prefill_bound = max(prefill_flops / BF16_OPS_PER_S,
+                        r["weights"] / HBM_BYTES_PER_S) * 1e3
+    decode_bytes = r["weights"] + cache_bytes + r["cache_bytes"]["mamba.ssm"]
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    ssd_ms, ssd_bound = time_ssd(torch, cfg)
+    row = dict(prefill_ms=r["prefill_ms"], prefill_bound_ms=prefill_bound,
+               prefill_flops=prefill_flops,
+               decode_ms_per_token_median=r["decode_ms"],
+               decode_bound_ms=decode_bound, tokens_per_s=r["tok_s"],
+               tokens_per_s_bound=B * 1e3 / decode_bound,
+               peak_gb=r["peak"] / 1e9, weights_gb=r["weights"] / 1e9,
+               cache=r["cache_spec"], cache_gb=cache_bytes / 1e9,
+               prefill_vs_forward_max_abs=r["err"],
+               decode_vs_forward_max_abs_f32=check_err,
+               decode_check_layers=check_layers, init_s=r["init_s"],
+               ssd_ms_per_layer=ssd_ms, ssd_bound_ms_per_layer=ssd_bound)
+    log(f"  the SSD scan alone at the prefill's shapes: {ssd_ms:.3f} ms a "
+        f"layer (bound {ssd_bound:.4f} ms), {L * ssd_ms:.2f} ms over the "
+        f"{L} layers")
+    log(f"  ok serve: prefill {r['prefill_ms']:.2f} ms (bound "
+        f"{prefill_bound:.2f} ms: {prefill_flops:.4e} flops, of them "
+        f"{B * S * L * ssd:.4e} SSD and {attn_flops:.4e} attention in "
+        f"{n_sh} shared applications, over {BF16_OPS_PER_S:.3e}/s, or "
+        f"{r['weights'] / 1e9:.3f} GB of weights over {HBM_BYTES_PER_S:.3e} "
+        f"B/s), decode {r['decode_ms']:.3f} ms per token, median of {T} "
+        f"(bound {decode_bound:.3f} ms: {decode_bytes / 1e9:.3f} GB), "
+        f"{r['tok_s']:.1f} tokens/s (bound {B * 1e3 / decode_bound:.1f}); "
+        f"peak {r['peak'] / 1e9:.2f} GB (weights {r['weights'] / 1e9:.2f} "
+        f"GB); cache {r['cache_spec']} {cache_bytes / 1e9:.3f} GB; step ms "
+        f"min {min(r['step_ms']):.3f} max {max(r['step_ms']):.3f}")
     return row
 
 
@@ -1945,8 +2133,9 @@ def main() -> int:
         robust_small_check(torch, tmpdir)
     serve_small_check(torch)
     publish_small_check(torch, ops)
-    small_slice_check(torch, ops, MOE_ARCH, ("laq",), MOE_SMALL_ALPHA)
-    serve_small_check(torch, MOE_ARCH)
+    for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH):
+        small_slice_check(torch, ops, arch, ("laq",), MODEL_SMALL_ALPHA)
+        serve_small_check(torch, arch)
 
     paths = {
         "laq": (cfg, {"absmax": 1, "quantize_pack_fused": 1}),
@@ -2086,10 +2275,35 @@ def main() -> int:
     log(f"  ok moe: launches {launches}, losses finite, round-1 uploads {W}; "
         f"round ms {[round(x, 1) for x in round_ms]}, max peak "
         f"{max(peaks) / 1e9:.2f} GB")
-    moe_grad_is_deterministic(torch, train_cfg)
+    grad_is_deterministic(torch, train_cfg, "11a")
     moe_serve_row = serve_moe(torch, moe_cfg)
     log("  " + json.dumps({"moe_train": moe_train_row,
                            "moe_serve": moe_serve_row}))
+
+    for path, arch, phases in (("hybrid", HYBRID_ARCH, ("12a", "12b")),
+                               ("ssm", SSM_ARCH, ("12c", "12c"))):
+        mcfg = get_config(arch)
+        train_cfg = dataclasses.replace(
+            mcfg, n_layers=HYBRID_TRAIN_LAYERS if path == "hybrid"
+            else mcfg.n_layers, param_dtype=torch.float32)
+        launches, recs, round_ms, peaks, _ = run_path(
+            torch, ops, "laq", train_cfg, MAMBA_TRAIN_ROUNDS, phase=phases[0])
+        per_run = MAMBA_TRAIN_ROUNDS * W * MAMBA_LEAVES[arch]
+        expect_launches(path, launches, {"absmax": per_run,
+                                         "quantize_pack_fused": per_run})
+        by_path[path] = launches
+        train_row = dict(round_ms=round_ms, peak_gb=max(peaks) / 1e9,
+                         losses=[r[0].item() for r in recs],
+                         cum_uploads=[int(r[2]) for r in recs])
+        log(f"  ok {path}: launches {launches}, losses finite, round-1 "
+            f"uploads {W}; round ms {[round(x, 1) for x in round_ms]}, max "
+            f"peak {max(peaks) / 1e9:.2f} GB")
+        grad_is_deterministic(torch, train_cfg, phases[0])
+        serve_row = serve_recurrent(
+            torch, mcfg, phases[1],
+            HYBRID_CHECK_LAYERS if path == "hybrid" else mcfg.n_layers)
+        log("  " + json.dumps({f"{path}_train": train_row,
+                               f"{path}_serve": serve_row}))
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {

@@ -2,7 +2,7 @@
 
     python3 scripts/profile_torch_round.py
         [--method laq|alaq|ef_topk|sharded_b4|sharded_adaptive]
-        [--rounds 2] [--top 20]
+        [--arch stablelm-1.6b] [--layers N] [--rounds 2] [--top 20]
 
 Runs one of ``chip_smoke.py``'s paths (stablelm-1.6b at its published
 widths, float32 params, bfloat16 compute, W=4, 2x512 tokens per worker,
@@ -10,7 +10,10 @@ accum 2, on the fused wire) with one of ``benchmarks/lm_frontier.py``'s
 deterministic methods: ``laq`` (b=8, per-leaf radii, 24 layers), ``alaq``
 (the radius schedule on the grid (2, 4, 8), 24 layers) or ``ef_topk``
 (b=4, top-k of 5%, error feedback, 8 layers), for ``--rounds`` warm-up
-rounds, then three more rounds:
+rounds, then three more rounds.  ``--arch`` and ``--layers`` take another
+config of the registry at another depth: ``--arch zamba2-2.7b --layers
+24`` is phase 12a's hybrid, ``--arch mamba2-130m`` phase 12c's model.
+The rounds:
 
 * plain, timed on the host clock and closed by a synchronize;
 * with host timers around the round's stages (each stage ends in
@@ -177,6 +180,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", choices=sorted(METHODS) + sorted(SHARDED),
                     default="laq")
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the method's, or the config's "
+                    "for another --arch)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -189,10 +196,12 @@ def main():
         return profile_sharded(args)
 
     method, layers = METHODS[args.method]
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
-                              param_dtype=torch.float32,
-                              n_layers=layers)
-    print(f"{args.method}, {cfg.n_layers} layers")
+    cfg = get_config(args.arch)
+    if args.arch != "stablelm-1.6b":
+        layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              n_layers=args.layers or layers)
+    print(f"{args.method}, {cfg.name}, {cfg.n_layers} layers")
     source = AccumulatingSource(
         lm_worker_loss(cfg, W),
         lm_worker_corpus(0, W, N_LOCAL, SEQ, cfg.vocab, device="cuda"),

@@ -9,7 +9,8 @@ from seed 0, prompts of 8 x 512 tokens, ``max_len`` 576, through
 ``launch/serve.py``'s greedy steps.  ``--param-dtype float32 --layers 8``
 is phase 10b's replica (its float32 weights are cast to bfloat16 in every
 product); ``--arch qwen3-moe-30b-a3b`` is phase 11b's whole MoE model (48
-layers).  After a warm-up
+layers), ``--arch zamba2-2.7b`` phase 12b's whole hybrid (54 Mamba2
+layers and 9 applications of the shared block).  After a warm-up
 session it times the prefill and ``--steps`` decode steps on the host
 clock (each closed by ``torch.cuda.synchronize()``), then profiles one
 prefill and ``--steps`` decode steps under ``torch.profiler`` (CPU + CUDA

@@ -4,6 +4,9 @@
 the reference's tokens."""
 from __future__ import annotations
 
+import itertools
+from typing import Iterator
+
 import torch
 
 from .. import random
@@ -43,3 +46,14 @@ def lm_worker_corpus(seed: int, n_workers: int, n_local: int, seq: int,
               for m in range(n_workers)]
     return {k: torch.stack([s[k] for s in shards]) for k in ("tokens",
                                                              "targets")}
+
+
+def lm_batches(seed: int, batch: int, seq: int, vocab: int, *,
+               device="cuda") -> Iterator[dict]:
+    """Infinite iterator of LM batches: step k draws
+    ``synthetic_lm_batch(fold_in(PRNGKey(seed), k), ...)`` on ``device``.
+    The reference's ``sharding`` argument (a ``jax.device_put`` target)
+    has no counterpart: the batches are made where they are used."""
+    key0 = random.PRNGKey(seed, device=resolve_device(device))
+    return (synthetic_lm_batch(random.fold_in(key0, step), batch, seq, vocab)
+            for step in itertools.count())

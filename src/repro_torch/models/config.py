@@ -1,6 +1,7 @@
-"""Model configuration: port of ``repro/models/config.py`` for the attention
-families (dense, moe, vlm, audio).  The SSM and hybrid families, and their
-fields, are not ported yet (ROADMAP.md queue 1, item 1: Mamba2 and hybrid).
+"""Model configuration: port of ``repro/models/config.py`` for every family
+of the reference (dense, moe, vlm, audio, and the Mamba2 families ssm and
+hybrid).  ``scan_layers`` is not ported: it is a JAX compile switch (the
+port runs its layers as a Python loop either way).
 """
 from __future__ import annotations
 
@@ -10,12 +11,13 @@ from typing import Optional
 import torch
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ATTENTION_FAMILIES + ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # dense | moe | vlm | audio
+    arch_type: str                  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     vocab: int
@@ -37,6 +39,15 @@ class ModelConfig:
     capacity_factor: float = 1.25
     attn_batch_shard: bool = False
     moe_combine: str = "gather"     # "gather" | "scatter" (models/moe.py)
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 128            # SSD intra-chunk quadratic block size
+    # hybrid: run the shared attention block after every `attn_every` layers
+    attn_every: int = 0
     sliding_window: int = 0         # causal window (0 = full attention)
     norm_eps: float = 1e-6
     param_dtype: torch.dtype = torch.bfloat16
@@ -52,18 +63,36 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.ssm_n_groups * self.ssm_state
+
+    @property
+    def has_attention(self) -> bool:
+        return self.n_heads > 0 or self.attn_every > 0
+
+    @property
+    def is_recurrent(self) -> bool:
+        """O(1)-in-seq decode state (SSM/hybrid)."""
+        return self.arch_type in ("ssm", "hybrid")
+
     def padded_vocab(self, multiple: int = 16) -> int:
         return ((self.vocab + multiple - 1) // multiple) * multiple
 
 
 def check_family(cfg: ModelConfig):
-    """Refuses the families the port does not run."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_type} models are not ported (ROADMAP.md queue 1, "
-            "item 1: Mamba2 and hybrid)")
-    if cfg.arch_type not in ATTENTION_FAMILIES:
-        raise ValueError(cfg.arch_type)
+    """Refuses an unknown family."""
+    if cfg.arch_type not in FAMILIES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}; have "
+                         f"{FAMILIES}")
 
 
 def _per_moe(cfg: ModelConfig, experts: int) -> int:
@@ -82,7 +111,20 @@ def n_params(cfg: ModelConfig) -> int:
         per_attn += 2 * hd
     per_ffn = (_per_moe(cfg, cfg.n_experts) if cfg.arch_type == "moe"
                else 3 * D * cfg.d_ff)
-    return V * D + D + D * V + cfg.n_layers * (per_attn + per_ffn + 2 * D)
+    total = V * D + D + D * V                   # embed, final norm, lm head
+    if cfg.arch_type in ATTENTION_FAMILIES:
+        return total + cfg.n_layers * (per_attn + per_ffn + 2 * D)
+    di, H, GN = cfg.d_inner, cfg.ssm_heads, cfg.ssm_n_groups * cfg.ssm_state
+    cc = cfg.conv_channels
+    per_mamba = (D * (2 * di + 2 * GN + H)      # w_z, w_x, w_B, w_C, w_dt
+                 + cfg.ssm_conv * cc + cc       # conv weights and biases
+                 + 3 * H                        # A_log, Dp, dt_bias
+                 + di                           # gate_norm
+                 + di * D)                      # out_proj
+    total += cfg.n_layers * (per_mamba + D)     # mamba blocks and their ln
+    if cfg.arch_type == "hybrid":               # one shared attention block
+        total += per_attn + per_ffn + 2 * D
+    return total
 
 
 def n_active_params(cfg: ModelConfig) -> int:

@@ -1,5 +1,5 @@
 """Top-level model API: loss, the federated worker objective and the
-serving calls (port of ``repro/models/model.py``, attention families)."""
+serving calls (port of ``repro/models/model.py``, every family)."""
 from __future__ import annotations
 
 import torch
@@ -12,8 +12,8 @@ AUX_LOSS_WEIGHT = 0.01
 
 def lm_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross entropy (token mean) plus ``AUX_LOSS_WEIGHT`` times
-    the MoE load-balance aux (0 for the other families, which leaves their
-    loss unchanged).
+    the MoE load-balance aux (0 for the other families: dense, vlm, audio,
+    ssm and hybrid, which leaves their loss unchanged).
 
     The target logit is taken with ``gather``; the reference contracts a
     one-hot over the vocab (which shards better under GSPMD).  Same value,

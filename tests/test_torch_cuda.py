@@ -571,13 +571,13 @@ def test_publisher_on_the_card_equals_the_cpu(cuda, policy):
                                                          tree_leaves(y)))
 
 
-def _moe_smoke(cuda):
+def _smoke(cuda, arch):
     import dataclasses
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models.model import init_params
     from repro_torch.tree import tree_map
-    cfg = dataclasses.replace(smoke_config(get_config("qwen3-moe-30b-a3b")),
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     params = {"cpu": init_params(0, cfg, device="cpu")}
@@ -585,12 +585,12 @@ def _moe_smoke(cuda):
     return cfg, params
 
 
-def test_moe_laq_on_the_card_equals_the_cpu(cuda):
-    """Smoke qwen3-moe in float32: 12 deterministic LAQ rounds (b=8, fused
-    wire, lm_frontier's criterion and 1/t stepsize, alpha 0.02, as in
-    ``tests/test_torch_moe.py``) give the same uploads and bits on the card
-    as on the CPU, losses to rtol 1e-4, and the card launches kernels 1
-    and 2 once per leaf, worker and round."""
+def _laq_card_vs_cpu(cuda, arch, leaves):
+    """12 deterministic LAQ rounds (b=8, fused wire, lm_frontier's
+    criterion and 1/t stepsize, alpha 0.02) of a smoke model in float32
+    on the card and on the CPU: the same uploads and bits, losses to rtol
+    1e-4, and the card launches kernels 1 and 2 once per leaf, worker and
+    round."""
     from repro_torch.core.adaptive import EtaSchedule
     from repro_torch.core.criterion import CriterionConfig
     from repro_torch.core.engine import AccumulatingSource, RoundEngine
@@ -598,7 +598,7 @@ def test_moe_laq_on_the_card_equals_the_cpu(cuda):
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.models.model import lm_worker_loss
 
-    cfg, params = _moe_smoke(cuda)
+    cfg, params = _smoke(cuda, arch)
     strat = StrategyConfig(kind="laq", bits=8, per_leaf_radius=True,
                            wire_backend="fused",
                            criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
@@ -613,7 +613,8 @@ def test_moe_laq_on_the_card_equals_the_cpu(cuda):
         runs[d] = RoundEngine(src, strat, alpha=0.02).run(params[d], 12,
                                                           device=d)
     assert (ops.absmax.launches - before[0],
-            ops.quantize_pack_fused.launches - before[1]) == (12 * 4 * 15,) * 2
+            ops.quantize_pack_fused.launches - before[1]) == (
+                (12 * 4 * leaves,) * 2)
     a, b = runs["cuda"], runs["cpu"]
     assert torch.equal(a.cum_uploads, b.cum_uploads)
     assert torch.equal(a.cum_bits, b.cum_bits)
@@ -621,14 +622,13 @@ def test_moe_laq_on_the_card_equals_the_cpu(cuda):
     torch.testing.assert_close(a.loss, b.loss, rtol=1e-4, atol=0)
 
 
-def test_moe_serve_on_the_card_equals_the_cpu(cuda):
-    """Smoke qwen3-moe in float32: prefill (the capacity path) and 8 decode
-    steps (the dense path) fed the CPU's greedy tokens give logits within
-    1e-4 of the CPU's and the same greedy ids."""
+def _serve_card_vs_cpu(cuda, arch):
+    """Prefill of 4 x 24 tokens and 8 decode steps fed the CPU's greedy
+    tokens give logits within 1e-4 of the CPU's and the same greedy ids."""
     from repro_torch import random
     from repro_torch.models.model import decode_step, prefill
 
-    cfg, params = _moe_smoke(cuda)
+    cfg, params = _smoke(cuda, arch)
     prompts = random.randint(random.PRNGKey(1, device="cpu"), (4, 24), 0,
                              cfg.vocab).long()
     out = {d: prefill(params[d], prompts.to(d), cfg, 32)
@@ -641,3 +641,29 @@ def test_moe_serve_on_the_card_equals_the_cpu(cuda):
         if step < 8:
             out = {d: decode_step(params[d], out[d][1], ids.to(d), cfg)
                    for d in ("cpu", "cuda")}
+
+
+def test_moe_laq_on_the_card_equals_the_cpu(cuda):
+    """Smoke qwen3-moe (alpha 0.02, as in ``tests/test_torch_moe.py``)."""
+    _laq_card_vs_cpu(cuda, "qwen3-moe-30b-a3b", 15)
+
+
+def test_moe_serve_on_the_card_equals_the_cpu(cuda):
+    """Smoke qwen3-moe: the prefill takes the capacity path, decode the
+    dense path."""
+    _serve_card_vs_cpu(cuda, "qwen3-moe-30b-a3b")
+
+
+@pytest.mark.parametrize("arch,leaves", [("mamba2-130m", 20),
+                                         ("zamba2-2.7b", 29)])
+def test_mamba_laq_on_the_card_equals_the_cpu(cuda, arch, leaves):
+    """The smoke Mamba2 models (alpha 0.02, as in
+    ``tests/test_torch_lm.py``)."""
+    _laq_card_vs_cpu(cuda, arch, leaves)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_mamba_serve_on_the_card_equals_the_cpu(cuda, arch):
+    """The smoke Mamba2 models: the chunked SSD in the prefill, the
+    recurrent step and the shared block's KV rows in decode."""
+    _serve_card_vs_cpu(cuda, arch)

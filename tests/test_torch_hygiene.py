@@ -101,7 +101,10 @@ def test_port_files_cover_the_new_modules():
                  "src/repro_torch/configs/chameleon_34b.py",
                  "src/repro_torch/configs/musicgen_medium.py",
                  "src/repro_torch/configs/qwen3_moe_30b_a3b.py",
-                 "src/repro_torch/configs/phi3p5_moe_42b.py"):
+                 "src/repro_torch/configs/phi3p5_moe_42b.py",
+                 "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/configs/mamba2_130m.py",
+                 "src/repro_torch/configs/zamba2_2p7b.py"):
         assert want in names, want
 
 
@@ -121,6 +124,31 @@ def test_moe_entry_points_refuse_a_missing_card():
     tokens = torch.zeros((1, 8), dtype=torch.int64)
     loss = lm_loss(params, {"tokens": tokens, "targets": tokens}, cfg)
     assert loss.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_mamba_entry_points_refuse_a_missing_card(arch):
+    """A Mamba2 model's parameters, its caches and ``lm_batches`` live on
+    the card unless told ``device="cpu"``; its loss and prefill run where
+    its parameters are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.mamba2 import init_mamba_cache
+    from repro_torch.models.model import init_cache, lm_loss, prefill
+    cfg = smoke_config(get_config(arch))
+    for fn in (lambda: init_params(0, cfg), lambda: init_cache(cfg, 1, 8),
+               lambda: init_mamba_cache(cfg, 1, cfg.n_layers),
+               lambda: lm_batches(0, 1, 8, cfg.vocab)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn()
+    params = init_params(0, cfg, device="cpu")
+    assert params["blocks"]["mamba"]["w_x"].device.type == "cpu"
+    tokens = next(lm_batches(0, 1, 8, cfg.vocab, device="cpu"))["tokens"]
+    loss = lm_loss(params, {"tokens": tokens, "targets": tokens}, cfg)
+    assert loss.device.type == "cpu"
+    _, cache = prefill(params, tokens, cfg, 12)
+    assert cache["mamba"]["ssm"].device.type == "cpu"
 
 
 def test_serving_entry_points_refuse_a_missing_card():

@@ -8,7 +8,10 @@ frameworks reduce the softmax and the matmuls in another order.  The
 deterministic LAQ engine (b=8, per-leaf radii, fused wire, lm_frontier's
 criterion and 1/t stepsize) runs 12 rounds on each side, the last of which
 skips; upload and bit counts must be identical and the loss trajectory
-agree to rtol 1e-4.  lm_frontier's two other deterministic methods, A-LAQ
+agree to rtol 1e-4.  The same 12 LAQ rounds run on smoke mamba2-130m (20 leaves) and smoke
+zamba2-2.7b (29 leaves, the shared block's gradient summed over its
+applications) at alpha 0.02, held the same way.  lm_frontier's two
+other deterministic methods, A-LAQ
 (radius schedule, grid (2, 4, 8), relative thresholds) and EF-top-k (b=4,
 5% of the coordinates, error feedback), run 5 rounds each, held the same
 way, with the per-round mean width exact too.  chip_smoke.py's
@@ -396,3 +399,59 @@ def test_robust_full_lm_rounds_match_reference_engine(setup):
     assert np.all(np.isfinite(got.loss.numpy()))
     np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
                                rtol=1e-4)
+
+
+MAMBA_ALPHA = 0.02
+
+
+@pytest.mark.parametrize("arch,leaves", [("mamba2-130m", 20),
+                                         ("zamba2-2.7b", 29)])
+def test_mamba_laq_rounds_match_reference_engine(arch, leaves):
+    """12 deterministic LAQ rounds (b=8, per-leaf radii, fused wire,
+    lm_frontier's criterion and 1/t stepsize) of the smoke Mamba2 models
+    from the reference's parameters and corpus, float32, at alpha 0.02:
+    uploads and bits exact, the loss to rtol 1e-4, the final parameters
+    as in ``tests/test_torch_moe.py``.  At 0.02 the losses fall from 6.8
+    to 2.6-2.8 and the trajectories stay within 2.1e-6 (measured on the
+    CPU, jax 0.9.0, torch 2.13); at 0.05 they oscillate (4.1 in round 5)
+    and zamba2's part by 6.4e-5 by round 12, with equal counts."""
+    cj = dataclasses.replace(jax_smoke_config(jax_get_config(arch)),
+                             param_dtype=jnp.float32,
+                             compute_dtype=jnp.float32)
+    ct = dataclasses.replace(smoke_config(get_config(arch)),
+                             param_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+    pj = jax_init_params(jax.random.PRNGKey(0), cj)
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+    corpus_j = jax_corpus(0, W, N_LOCAL, SEQ, cj.vocab)
+    corpus_t = {k: torch.from_numpy(np.array(v)).long()
+                for k, v in corpus_j.items()}
+    crit, eta = dict(D=10, xi=0.08, t_bar=100), dict(kind="inv_t", t0=30.0)
+    strat = dict(kind="laq", bits=8, per_leaf_radius=True,
+                 wire_backend="fused")
+    je = JEngine(JSource(jax_worker_loss(cj, W), corpus_j,
+                         deterministic=True, accum=ACCUM, scale=1.0),
+                 JStrategy(**strat, criterion=JCriterion(**crit),
+                           eta_schedule=JEta(**eta)), alpha=MAMBA_ALPHA)
+    jcarry, want = je.run_from(je.init_carry(pj), ROUNDS)
+    te = RoundEngine(AccumulatingSource(lm_worker_loss(ct, W), corpus_t,
+                                        deterministic=True, accum=ACCUM,
+                                        scale=1.0),
+                     StrategyConfig(**strat, criterion=CriterionConfig(**crit),
+                                    eta_schedule=EtaSchedule(**eta)),
+                     alpha=MAMBA_ALPHA)
+    tcarry, got = te.run_from(te.init_carry(pt, device="cpu"), ROUNDS)
+
+    np.testing.assert_array_equal(got.cum_uploads.numpy(),
+                                  np.asarray(want.cum_uploads))
+    np.testing.assert_array_equal(got.cum_bits.numpy(),
+                                  np.asarray(want.cum_bits))
+    assert int(got.cum_uploads[0]) == W
+    assert int(got.cum_uploads[-1]) < W * ROUNDS
+    np.testing.assert_allclose(got.loss.numpy(), np.asarray(want.loss),
+                               rtol=1e-4)
+    final_t = tree_leaves(params_to_numpy(tcarry[0]))
+    final_j = jax.tree.leaves(jcarry[0])
+    assert len(final_t) == len(final_j) == leaves
+    for a, b in zip(final_t, final_j):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=5e-4)

@@ -2,19 +2,19 @@
 (``repro_torch/configs``, ``repro_torch/models``) against the JAX package's,
 on the CPU.
 
-- Every ported config equals the reference's field by field.  The
-  reference's fields that the port lacks are the Mamba2/hybrid ones and
-  ``scan_layers`` (a JAX compile switch); they hold their defaults in every
-  ported config.  ``mamba2-130m`` and ``zamba2-2.7b`` are not registered.
+- Every config of the reference is registered and equals the reference's
+  field by field.  The one field the port lacks is ``scan_layers`` (a JAX
+  compile switch); it holds its default in every config.
 - ``n_params`` and ``n_active_params`` equal the reference's at the
   published widths, and the leaf sizes of the reference's ``init_params``
   (its abstract shapes: no 30 B parameters are drawn); at smoke size the
   port's own ``init_params`` has the reference's leaf shapes, in JAX's leaf
   order, and ``n_params`` elements.
 - Smoke forward, prefill and 3 greedy decode steps (teacher-forced with
-  the reference's ids) of each newly registered config from the
-  reference's parameters, float32 params and compute: logits to atol 2e-5
-  (``tests/test_torch_serve.py``'s float32 bound; measured at most 3.1e-6),
+  the reference's ids) of each config registered since PR 18 (the
+  Mamba2 families among them) from the reference's parameters, float32
+  params and compute: logits to atol 2e-5 (``tests/test_torch_serve.py``'s
+  float32 bound; measured at most 3.1e-6),
   and the prefill's last position equal to the port's own forward there to
   the same bound (the analogue of ``tests/test_models.py``'s
   ``test_arch_smoke_serve``).
@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import decode_step as jax_decode_step
@@ -46,20 +47,21 @@ from repro_torch.models.model import (decode_step, forward, init_params,
 from repro_torch.tree import tree_leaves
 
 NEW_ARCHS = ("qwen3-8b", "yi-6b", "yi-9b", "chameleon-34b",
-             "musicgen-medium", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
-NOT_PORTED_FIELDS = {"ssm_state", "ssm_head_dim", "ssm_expand", "ssm_conv",
-                     "ssm_n_groups", "ssm_chunk", "attn_every",
-                     "scan_layers"}
+             "musicgen-medium", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+             "mamba2-130m", "zamba2-2.7b")
+NOT_PORTED_FIELDS = {"scan_layers"}
 DTYPES = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
 ATOL = 2e-5
 
 
 def test_registry_has_the_attention_families():
+    """Every family of the reference, the Mamba2 ones included; an unknown
+    id raises ``KeyError`` on both sides."""
     assert set(ARCH_IDS) == set(NEW_ARCHS) | {"stablelm-1.6b"}
-    for arch in ("mamba2-130m", "zamba2-2.7b"):
-        jax_get_config(arch)                   # the reference has them
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
+    for get in (get_config, jax_get_config):
         with pytest.raises(KeyError):
-            get_config(arch)
+            get("mamba3-1b")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -106,15 +108,31 @@ def test_published_sizes():
     assert n_params(dataclasses.replace(moe, n_layers=1)) == 1_245_452_544
     assert len(tree_leaves(init_params(
         0, smoke_config(moe), device="cpu"))) == 15
+    hybrid, ssm = get_config("zamba2-2.7b"), get_config("mamba2-130m")
+    assert n_params(hybrid) == 2_422_670_240
+    assert n_params(dataclasses.replace(hybrid, n_layers=24)) == 1_226_023_040
+    assert n_params(ssm) == 167_610_816
+    for cfg, leaves in ((hybrid, 29), (ssm, 20)):
+        assert len(tree_leaves(init_params(
+            0, smoke_config(cfg), device="cpu"))) == leaves
+    assert (hybrid.d_inner, hybrid.ssm_heads, hybrid.conv_channels) == (
+        5120, 80, 5248)
+    assert hybrid.has_attention and hybrid.is_recurrent
+    assert not ssm.has_attention and ssm.is_recurrent
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_mamba_families_are_refused(family):
+    """Since the Mamba2 families are ported, only a family name that the
+    port does not know is refused: a misspelling of each raises
+    ``ValueError`` naming the families."""
     cfg = dataclasses.replace(smoke_config(get_config("yi-6b")),
-                              arch_type=family)
+                              arch_type=family.upper())
     for fn in (lambda: n_params(cfg),
-               lambda: init_params(0, cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Mamba2"):
+               lambda: init_params(0, cfg, device="cpu"),
+               lambda: forward({}, torch.zeros((1, 4), dtype=torch.int64),
+                               cfg)):
+        with pytest.raises(ValueError, match=f"unknown arch_type.*'{family}'"):
             fn()
 
 

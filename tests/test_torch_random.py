@@ -146,3 +146,18 @@ def test_minibatch_stream_keys_match_the_reference():
             got = R.randint(R.fold_in(ks, m), (5,), 0, 12)
             want = jax.random.randint(jax.random.fold_in(jks, m), (5,), 0, 12)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_lm_batches_match_the_reference(layout):
+    """``data.synthetic.lm_batches``: the first 3 batches of the infinite
+    iterator equal the reference's, tokens and targets (int32 there, int64
+    here), in both layouts."""
+    from repro.data import synthetic as jsyn
+    from repro_torch.data.synthetic import lm_batches
+    got = lm_batches(3, 4, 16, 500, device="cpu")
+    want = jsyn.lm_batches(3, 4, 16, 500)
+    for _ in range(3):
+        g, w = next(got), next(want)
+        for k in ("tokens", "targets"):
+            assert g[k].dtype == torch.int64 and g[k].shape == (4, 16)
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))

@@ -192,12 +192,15 @@ def test_decode_matches_forward_over_the_whole_sequence():
 
 
 def test_other_families_refuse_serving():
+    """Every family of the reference serves (the Mamba2 ones in
+    ``tests/test_torch_models.py``); a family the port does not know is
+    refused with ``ValueError`` before anything is allocated."""
     cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
-                              arch_type="ssm")
-    with pytest.raises(NotImplementedError):
+                              arch_type="rwkv")
+    with pytest.raises(ValueError, match="unknown arch_type 'rwkv'"):
         init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown arch_type 'rwkv'"):
         prefill({}, torch.zeros((1, 4), dtype=torch.int64), cfg, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown arch_type 'rwkv'"):
         decode_step({}, {"pos": 0}, torch.zeros((1, 1), dtype=torch.int64),
                     cfg)

@@ -10,12 +10,15 @@ port runs on four gloo ranks.  Both start from the same parameters (numpy,
 carried into the port by ``repro_torch.convert``) and the same batch;
 worker m takes rows [2m, 2m + 2), whose tokens come from vocabularies of
 different sizes, so that the skip rule (xi = 0.3 without the quantization
-slack) keeps some workers and not others after step 1.  Four
+slack; 0.5 on the hybrid, ``torch_dist_cases.TRAIN_CRITERIA``) keeps some
+workers and not others after step 1.  Five
 configurations of 3 steps: the float wire, the packed wire at b=4, the
 packed wire with the adaptive schedule on the grid (2, 4, 8), whose
 absolute thresholds give the workers different widths, and the packed
 wire at b=4 on smoke qwen3-moe-30b-a3b (15 leaves; its router's aux enters
-the loss and the gradient through ``lm_loss``); and both wires
+the loss and the gradient through ``lm_loss``) and on smoke zamba2-2.7b
+(29 leaves: the Mamba2 blocks and the shared attention block); and both
+wires
 with bernoulli participation (p=0.5) and the defense's validation and
 norm gate, where each worker reads its slot of the round's cohort and an
 absent or rejected worker is masked off the wire like a skip.  All run
@@ -90,7 +93,8 @@ for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
                   defense=DefenseConfig(**C.TRAIN_DEFENSE))
              if config in C.TRAIN_DEFENDED else {})
     strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
-                           criterion=CriterionConfig(**C.TRAIN_CRITERION),
+                           criterion=CriterionConfig(**C.TRAIN_CRITERIA.get(
+                               config, C.TRAIN_CRITERION)),
                            eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra)
     opt = sgd()
     state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
@@ -120,6 +124,9 @@ for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
         out[f"{config}/params/{k}"] = v
 np.savez(os.path.join(os.environ["OUT"], "train_jax.npz"), **out)
 '''
+
+
+LEAVES = {"moe_packed": 15, "hybrid_packed": 29}
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +179,7 @@ def test_loss_and_params_match_reference(runs, config):
                                want[f"{config}/loss"], rtol=1e-4)
     w, g = _params(want, config), _params(got[0], config)
     assert w.keys() == g.keys()
-    assert len(w) == (15 if config in C.TRAIN_ARCHS else 12)
+    assert len(w) == LEAVES.get(config, 12)
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
                                    err_msg=k)

@@ -82,12 +82,18 @@ def wire_strategy_kwargs(name: str) -> dict:
 TRAIN_W, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2, 32, 3, 1e-2
 TRAIN_MICROBATCH = 2
 TRAIN_CRITERION = dict(D=10, xi=0.3, t_bar=100, include_quant_error=False)
+# per-configuration criteria: at xi 0.3 every worker of smoke zamba2 uploads
+# in step 2 and none in step 3; at 0.5 two of the four skip in step 2, so
+# the run holds mixed decisions, as the stablelm runs do at 0.3
+TRAIN_CRITERIA = {"hybrid_packed": dict(TRAIN_CRITERION, xi=0.5)}
 TRAIN_ETA = dict(kind="inv_t", t0=30.0)
 TRAIN_THRESHOLDS = (0.05, 0.07)     # absolute radius thresholds of A-LAQ
-TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed")
+TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed",
+                 "hybrid_packed")
 # the model of each configuration (smoke variant, float32): stablelm unless
 # named here
-TRAIN_ARCHS = {"moe_packed": "qwen3-moe-30b-a3b"}
+TRAIN_ARCHS = {"moe_packed": "qwen3-moe-30b-a3b",
+               "hybrid_packed": "zamba2-2.7b"}
 # bernoulli participation with validation and the norm gate, on both wires
 TRAIN_DEFENDED = ("defended_float", "defended_packed")
 TRAIN_PARTICIPATION = dict(participation="bernoulli", participation_p=0.5,
@@ -282,7 +288,8 @@ def rank_train(workers, out_dir):
                  if config in TRAIN_DEFENDED else {})
         strat = StrategyConfig(
             **TRAIN_STRATEGY, bit_schedule=sched,
-            criterion=CriterionConfig(**TRAIN_CRITERION),
+            criterion=CriterionConfig(**TRAIN_CRITERIA.get(
+                config, TRAIN_CRITERION)),
             eta_schedule=EtaSchedule(**TRAIN_ETA), **extra)
         opt = sgd()
         params = params_from_numpy(numpy_params(shapes), device="cpu")
