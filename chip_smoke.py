@@ -76,14 +76,21 @@ CPU or to a plain version while a CUDA tensor is at hand):
    absmax 24 (12 in worker_update, 12 in the streamed wire), and
    quantize_pack_fused 12 + quantize_codes_fused 12 (fixed width) or
    quantize_pack_adaptive 12 + quantize_codes_adaptive 12 (adaptive).
-   Losses finite, peak allocation below 76 GB.
+   Then 3 steps each, at the same 24 layers, of the lazy rule lasg_wk2 with SVRG's streaming anchor (refreshed in
+   steps 1 and 3) on the packed wire at b=4: the anchor's and the stale
+   iterate's backprops at float32 iterates under bfloat16 compute, the
+   same 24 + 12 + 12 launches a step; and of phase 4's EF-top-k (b=4, 5%)
+   on the float wire: sparse_quantize_pack once a step, the dense kernels
+   never.  Losses finite, step 1 uploads, peak allocation below 76 GB.
 6. The exchange on the card: W=4 gloo ranks on the one card (payloads
    staged through pinned host memory), stablelm-1.6b at full width and 2
    layers, 3 steps each of the float wire and the packed wire at b=4 from
    the same parameters and batch, then 3 of each with bernoulli
-   participation (p=0.5) and validation with the norm gate: the
-   parameters must be bitwise equal between the two wires, and the
-   uploads and bits equal step by step and on every rank.
+   participation (p=0.5) and validation with the norm gate, then 2 of
+   each under lasg_wk2 + SVRG (phase 5's) at 1 layer (four ranks' states
+   at 2 layers do not fit in the card's memory): the parameters must be
+   bitwise equal between the two wires, and the uploads and bits equal
+   step by step and on every rank.
 7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
    {4, 8}, its rows printed.
 8. Stochastic rounds at stablelm-1.6b's published widths, as phase 4 but
@@ -223,7 +230,13 @@ SPARSE_K = 82_213_376         # static_k(0.05, 1,644,267,520), 24 layers
 SMALL_ROUNDS, SMALL_ALPHA = 12, 0.05
 TIMED_LAUNCHES = 20
 SHARDED_STEPS, SHARDED_ROWS, SHARDED_MICROBATCH, SHARDED_LR = 3, 2, 2, 1e-2
+# phase 5's paths on the float wire (the others run on the packed wire)
+SHARDED_FLOAT = ("sharded_ef_topk",)
 EXCHANGE_W, EXCHANGE_LAYERS, EXCHANGE_ROWS = 4, 2, 1
+# phase 6's lasg_wk2 + SVRG: 2 steps on each wire at 1 layer (four ranks'
+# states at 2 layers, about 17.5 GiB each, ran out of the card's memory
+# beside the five CUDA contexts)
+EXCHANGE_LAZY_STEPS, EXCHANGE_LAZY_LAYERS = 2, 1
 RANK_TIMEOUT = 600            # seconds for the phase-6 ranks
 EXCHANGE_DEFENDED = dict(participation="bernoulli", participation_p=0.5,
                          participation_seed=1)   # phase 6, with the defense
@@ -1170,7 +1183,10 @@ def time_new_kernels(n, torch, ops, ref):
 
 
 def sharded_strategies():
-    """The sharded step's two packed-wire configurations (phase 5)."""
+    """The sharded step's configurations (phase 5): b=4 and the adaptive
+    schedule on the packed wire, lasg_wk2 + SVRG (anchor refreshed every 2
+    steps) on the packed wire at b=4, and phase 4's EF-top-k (b=4, 5%) on
+    the float wire."""
     from repro_torch.core.adaptive import BitSchedule
     from repro_torch.core.criterion import CriterionConfig
     from repro_torch.core.strategy import StrategyConfig
@@ -1182,17 +1198,98 @@ def sharded_strategies():
         "sharded_adaptive": StrategyConfig(**base, bit_schedule=BitSchedule(
             kind="radius", grid=(2, 4, 8), threshold_mode="rel",
             thresholds=(0.05, 0.5))),
+        "sharded_wk2_svrg": StrategyConfig(**base, lazy_rule="lasg_wk2",
+                                           grad_mode="svrg", svrg_period=2),
+        "sharded_ef_topk": StrategyConfig(**base, compressor="topk",
+                                          compressor_k=0.05,
+                                          error_feedback=True),
     }
 
 
+# phase 5's smoke-size runs of the sharded step, card vs CPU: the lazy rules
+# and SVRG (anchor refreshed every 2 steps) and the compressors, each as
+# StrategyConfig fields, its wire and its xi (tests/torch_dist_cases.py's
+# settings: a criterion that splits skips and uploads)
+SHARDED_SMALL = {
+    "lasg_wk": (dict(lazy_rule="lasg_wk"), "packed", 0.3),
+    "lasg_wk2": (dict(lazy_rule="lasg_wk2"), "packed", 0.003),
+    "lasg_ps": (dict(lazy_rule="lasg_ps"), "packed", 0.3),
+    "svrg": (dict(grad_mode="svrg", svrg_period=2), "packed", 0.3),
+    "wk2_svrg": (dict(lazy_rule="lasg_wk2", grad_mode="svrg",
+                      svrg_period=2), "float", 0.003),
+    "ef_topk": (dict(compressor="topk", compressor_k=0.1,
+                     error_feedback=True), "float", 0.3),
+    "randk": (dict(compressor="randk", compressor_k=0.1), "float", 0.5),
+    "ef_randk": (dict(compressor="randk", compressor_k=0.1,
+                      error_feedback=True), "float", 1.0),
+}
+SHARDED_SMALL_STEPS = 4
+
+
+def sharded_small_check(torch, card_workers, cpu_workers):
+    """Phase 5, first: each of ``SHARDED_SMALL`` through the sharded step
+    on smoke stablelm in float32, one worker of 2 x 32 tokens, on the card
+    (NCCL) and on the CPU (gloo): uploads and bits equal step by step, the
+    loss to rtol 1e-4 (the CPU runs are held to the JAX package's step by
+    ``tests/test_torch_train.py``)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.adaptive import EtaSchedule
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.data.synthetic import lm_worker_corpus
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(smoke_config(get_config("stablelm-1.6b")),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = init_params(0, cfg, device="cpu")
+    corpus = lm_worker_corpus(0, 1, 2, 32, cfg.vocab, device="cpu")
+    for name, (fields, wire, xi) in SHARDED_SMALL.items():
+        strat = StrategyConfig(
+            kind="laq", bits=4, per_leaf_radius=True, wire_backend="fused",
+            criterion=CriterionConfig(D=10, xi=xi, t_bar=100,
+                                      include_quant_error=False),
+            eta_schedule=EtaSchedule("inv_t", t0=30.0), **fields)
+        runs = {}
+        for dev, workers in (("cuda", card_workers), ("cpu", cpu_workers)):
+            batch = {k: v[0].to(dev) for k, v in corpus.items()}
+            state = init_train_state(
+                tree_map(lambda l: l.to(dev, copy=True), params), workers,
+                strat, sgd())
+            step = make_train_step(cfg, workers, strat, sgd(),
+                                   lr=SHARDED_LR, wire=wire,
+                                   microbatch=SHARDED_MICROBATCH)
+            rec = []
+            for _ in range(SHARDED_SMALL_STEPS):
+                state, met = step(state, batch)
+                rec.append((met.loss.item(), met.uploads, met.bits.item()))
+            runs[dev] = (rec, [l.cpu() for l in tree_leaves(state.params)])
+        (a, pa), (b, pb) = runs["cuda"], runs["cpu"]
+        if [r[1:] for r in a] != [r[1:] for r in b]:
+            raise AssertionError(f"phase 5 small {name}: uploads/bits differ: "
+                                 f"cuda {a} cpu {b}")
+        rel = max(abs(x[0] - y[0]) / abs(y[0]) for x, y in zip(a, b))
+        if not rel <= 1e-4:
+            raise AssertionError(f"phase 5 small {name}: loss differs from "
+                                 f"the CPU run by {rel:.3e}")
+        dp = max((x - y).abs().max().item() for x, y in zip(pa, pb))
+        log(f"  ok {name} ({wire} wire): uploads/bits {[r[1:] for r in a]} "
+            f"equal on card and CPU; loss max rel diff {rel:.3e}; params "
+            f"max abs diff {dp:.3e}")
+
+
 SHARDED_KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
-                   "quantize_codes_fused", "quantize_codes_adaptive")
+                   "quantize_codes_fused", "quantize_codes_adaptive",
+                   "sparse_quantize_pack")
 
 
 def run_sharded_path(torch, ops, workers, method, cfg, steps):
-    """Phase 5: one packed-wire configuration of the sharded step at full
-    width on one worker, fresh params, the launch counters zeroed just
-    before the steps and read just after."""
+    """Phase 5: one configuration of the sharded step at full width on one
+    worker (its wire: ``SHARDED_FLOAT`` or packed), fresh params, the
+    launch counters zeroed just before the steps and read just after."""
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.launch.train import init_train_state, make_train_step
     from repro_torch.models.model import init_params
@@ -1205,7 +1302,9 @@ def run_sharded_path(torch, ops, workers, method, cfg, steps):
     state = init_train_state(init_params(0, cfg, device="cuda"), workers,
                              strat, sgd())
     step = make_train_step(cfg, workers, strat, sgd(), lr=SHARDED_LR,
-                           wire="packed", microbatch=SHARDED_MICROBATCH)
+                           wire=("float" if method in SHARDED_FLOAT
+                                 else "packed"),
+                           microbatch=SHARDED_MICROBATCH)
     torch.cuda.synchronize()
     for name in SHARDED_KERNELS:
         getattr(ops, name).launches = 0
@@ -1271,21 +1370,28 @@ def _exchange_rank(rank, port, queue):
         defended = strat._replace(**EXCHANGE_DEFENDED,
                                   defense=DefenseConfig(validate=True,
                                                         gate_mult=4.0))
+        lazy = sharded_strategies()["sharded_wk2_svrg"]
         out = {"transport": workers.transport("cuda")}
         final = {}
         for label, st, wire in (("float", strat, "float"),
                                 ("packed", strat, "packed"),
                                 ("defended_float", defended, "float"),
-                                ("defended_packed", defended, "packed")):
+                                ("defended_packed", defended, "packed"),
+                                ("lazy_float", lazy, "float"),
+                                ("lazy_packed", lazy, "packed")):
             for name in SHARDED_KERNELS:
                 getattr(ops, name).launches = 0
-            state = init_train_state(init_params(0, cfg, device="cuda"),
+            lcfg = (dataclasses.replace(cfg, n_layers=EXCHANGE_LAZY_LAYERS)
+                    if label.startswith("lazy") else cfg)
+            state = init_train_state(init_params(0, lcfg, device="cuda"),
                                      workers, st, sgd())
-            step = make_train_step(cfg, workers, st, sgd(),
+            step = make_train_step(lcfg, workers, st, sgd(),
                                    lr=SHARDED_LR, wire=wire)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             rec = []
-            for _ in range(SHARDED_STEPS):
+            for _ in range(EXCHANGE_LAZY_STEPS if label.startswith("lazy")
+                           else SHARDED_STEPS):
                 t0 = time.perf_counter()
                 state, met = step(state, batch)
                 torch.cuda.synchronize()
@@ -1303,10 +1409,12 @@ def _exchange_rank(rank, port, queue):
             torch.cuda.empty_cache()
         out["params_bitwise"] = all(
             torch.equal(a, b) for a, b in zip(final["float"], final["packed"]))
-        out["defended_params_bitwise"] = all(
-            torch.equal(a, b) for a, b in zip(final["defended_float"],
-                                              final["defended_packed"]))
+        for pre in ("defended_", "lazy_"):
+            out[f"{pre}params_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(final[f"{pre}float"],
+                                                  final[f"{pre}packed"]))
         out["n_params"] = sum(t.numel() for t in final["float"])
+        out["lazy_n_params"] = sum(t.numel() for t in final["lazy_float"])
         dist.destroy_process_group()
         queue.put((rank, out))
     except BaseException as e:                   # reported, then re-raised
@@ -1357,7 +1465,7 @@ def exchange_on_card(torch):
                 p.kill()
                 p.join(10)
     for rank, out in sorted(results.items()):
-        for pre in ("", "defended_"):
+        for pre in ("", "defended_", "lazy_"):
             if not out[f"{pre}params_bitwise"]:
                 raise AssertionError(f"phase 6 rank {rank}: {pre}float and "
                                      f"{pre}packed wires gave different "
@@ -1371,20 +1479,26 @@ def exchange_on_card(torch):
             f"(loss, uploads, bits, ms) {out['float']}; packed "
             f"{out['packed']}; defended float {out['defended_float']}; "
             f"defended packed {out['defended_packed']} (rejections "
-            f"{out['defended_packed_rejects']}); peak "
+            f"{out['defended_packed_rejects']}); lasg_wk2 + SVRG float "
+            f"{out['lazy_float']}, packed {out['lazy_packed']} "
+            f"({out['lazy_n_params']} params, peak "
+            f"{out['lazy_float_peak'] / 1e9:.2f} GB float, "
+            f"{out['lazy_packed_peak'] / 1e9:.2f} GB packed); peak "
             f"{out['packed_peak'] / 1e9:.2f} GB; params bitwise equal "
             f"between the wires ({out['n_params']} params)")
     first = results[0]
     for rank, out in results.items():       # global sums: one value on all
-        for wire in ("float", "packed", "defended_float", "defended_packed"):
+        for wire in ("float", "packed", "defended_float", "defended_packed",
+                     "lazy_float", "lazy_packed"):
             if [r[1:3] for r in out[wire]] != [r[1:3] for r in first[wire]]:
                 raise AssertionError(f"phase 6: rank {rank}'s uploads/bits "
                                      f"differ from rank 0's ({wire} wire)")
-    want = {"absmax": 2 * 12 * SHARDED_STEPS,
-            "quantize_pack_fused": 12 * SHARDED_STEPS,
-            "quantize_codes_fused": 12 * SHARDED_STEPS}
     for rank, out in results.items():
-        for label in ("packed", "defended_packed"):
+        for label in ("packed", "defended_packed", "lazy_packed"):
+            n = (EXCHANGE_LAZY_STEPS if label.startswith("lazy")
+                 else SHARDED_STEPS)
+            want = {"absmax": 2 * 12 * n, "quantize_pack_fused": 12 * n,
+                    "quantize_codes_fused": 12 * n}
             got = out[f"{label}_launches"]
             if any(got[k] != v for k, v in want.items()):
                 raise AssertionError(f"phase 6 rank {rank}: {label} wire "
@@ -2161,21 +2275,27 @@ def main() -> int:
 
     log("phase 5: the sharded step at full width, one NCCL worker")
     import torch.distributed as dist
-    from repro_torch.launch.mesh import init_workers
+    from repro_torch.launch.mesh import WorkerGroup, init_workers
     store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
     workers = init_workers("nccl", 1, 0, store)
+    sharded_small_check(torch, workers, WorkerGroup(
+        dist.new_group([0], backend="gloo"), 1, 0, "gloo"))
     sharded_cfg = get_config("stablelm-1.6b")      # bf16 params and compute
     per_step = {
         "sharded_b4": {"absmax": 24, "quantize_pack_fused": 12,
                        "quantize_codes_fused": 12},
         "sharded_adaptive": {"absmax": 24, "quantize_pack_adaptive": 12,
                              "quantize_codes_adaptive": 12},
+        "sharded_wk2_svrg": {"absmax": 24, "quantize_pack_fused": 12,
+                             "quantize_codes_fused": 12},
+        "sharded_ef_topk": {"sparse_quantize_pack": 1},
     }
     for method, want in per_step.items():
         log(f"  {method}: stablelm-1.6b at {sharded_cfg.n_layers} layers "
             f"(P={n_params(sharded_cfg)}), {SHARDED_ROWS}x{SEQ} tokens in "
-            f"{SHARDED_MICROBATCH} microbatches, transport "
-            f"{workers.transport('cuda')}")
+            f"{SHARDED_MICROBATCH} microbatches, "
+            f"{'float' if method in SHARDED_FLOAT else 'packed'} wire, "
+            f"transport {workers.transport('cuda')}")
         launches, recs, step_ms, peaks = run_sharded_path(
             torch, ops, workers, method, sharded_cfg, SHARDED_STEPS)
         for name in SHARDED_KERNELS:
@@ -2201,10 +2321,14 @@ def main() -> int:
                                      for k in KERNELS}
     by_path["exchange_w4_defended_packed"] = {
         k: ex["defended_packed_launches"].get(k, 0) for k in KERNELS}
+    by_path["exchange_w4_wk2_svrg_packed"] = {
+        k: ex["lazy_packed_launches"].get(k, 0) for k in KERNELS}
     log(f"  ok: float and packed wires give bitwise-equal parameters on "
         f"every rank, without and with bernoulli participation and the "
-        f"defense; uploads/bits per step {[r[1:3] for r in ex['packed']]}, "
-        f"defended {[r[1:3] for r in ex['defended_packed']]}")
+        f"defense, and under lasg_wk2 + SVRG; uploads/bits per step "
+        f"{[r[1:3] for r in ex['packed']]}, defended "
+        f"{[r[1:3] for r in ex['defended_packed']]}, lasg_wk2 + SVRG "
+        f"{[r[1:3] for r in ex['lazy_packed']]}")
 
     log("phase 7: benchmarks_torch/bits_sweep.py")
     sweep_launches, _ = run_bits_sweep(torch, ops)

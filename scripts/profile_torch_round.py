@@ -1,8 +1,10 @@
 """Where one round of the PyTorch port spends its time on the GPU.
 
     python3 scripts/profile_torch_round.py
-        [--method laq|alaq|ef_topk|sharded_b4|sharded_adaptive]
+        [--method laq|alaq|ef_topk|sharded_b4|sharded_adaptive|
+                  sharded_wk2_svrg|sharded_ef_topk]
         [--arch stablelm-1.6b] [--layers N] [--rounds 2] [--top 20]
+        [--memory]
 
 Runs one of ``chip_smoke.py``'s paths (stablelm-1.6b at its published
 widths, float32 params, bfloat16 compute, W=4, 2x512 tokens per worker,
@@ -26,11 +28,21 @@ The rounds:
 The ``sharded_*`` methods profile one step of ``chip_smoke.py``'s phase 5
 instead: the sharded step (``launch/train.py``) at full width and depth,
 bfloat16 params and compute, one NCCL worker, 2x512 tokens in 2
-microbatches, sgd, the packed wire at b=4 or with the adaptive schedule on
-the grid (2, 4, 8).  Its stages: the gradients, ``worker_update`` (the
-roundtrip, width and skip decision), the streamed packed wire
-(``_packed_aggregate``: codes, pack, exchange, decode and sum) and the
-optimizer update; the rest is the server recursion and bookkeeping.
+microbatches, sgd, the packed wire at b=4, with the adaptive schedule on
+the grid (2, 4, 8), or under lasg_wk2 with SVRG's streaming anchor
+(refreshed every 2 steps), or EF-top-k (b=4, 5%) on the float wire.  Its
+stages: the gradients (every backprop: the primal one, and SVRG's anchor
+and WK2's stale iterate where they run), ``worker_update`` (the
+roundtrip, width and skip decision), the wire (the streamed packed wire,
+``_packed_aggregate``: codes, pack, exchange, decode and sum; or the
+float wire's gather and sum) and the optimizer update; the rest is the
+SVRG refresh and correction, the server recursion and bookkeeping.
+``--layers`` cuts their depth too.  With ``--memory`` a sharded method
+runs ``--rounds`` + 1 steps and prints no times: for every call of the
+step, of those stages but ``worker_update`` and of the calls inside it
+(the EF sum, the sparse roundtrip's flat copies, support, top-k,
+``nonzero`` and scatter), the bytes allocated at entry and at exit and the peak inside
+the call, nested in call order.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -68,11 +80,15 @@ METHODS = {   # benchmarks/lm_frontier.py:84-96, fused wire: (strategy, layers)
     "ef_topk": (dict(bits=4, compressor="topk", compressor_k=0.05,
                      error_feedback=True), 8),
 }
-SHARDED = {   # chip_smoke.py phase 5
-    "sharded_b4": dict(bits=4),
-    "sharded_adaptive": dict(bits=4, bit_schedule=BitSchedule(
+SHARDED = {   # chip_smoke.py phase 5: (strategy, wire)
+    "sharded_b4": (dict(bits=4), "packed"),
+    "sharded_adaptive": (dict(bits=4, bit_schedule=BitSchedule(
         kind="radius", grid=(2, 4, 8), threshold_mode="rel",
-        thresholds=(0.05, 0.5))),
+        thresholds=(0.05, 0.5))), "packed"),
+    "sharded_wk2_svrg": (dict(bits=4, lazy_rule="lasg_wk2", grad_mode="svrg",
+                              svrg_period=2), "packed"),
+    "sharded_ef_topk": (dict(bits=4, compressor="topk", compressor_k=0.05,
+                             error_feedback=True), "float"),
 }
 
 
@@ -91,6 +107,77 @@ class StageTimer:
             self.ms[name] += (time.perf_counter() - t0) * 1e3
             return out
         return timed
+
+
+class MemoryTracker:
+    """Device memory of named calls: the bytes allocated at entry and at
+    exit, and the peak allocation inside the call (nested tracked calls
+    included), one record per call in the order the calls began."""
+
+    def __init__(self):
+        self.records = []       # [depth, name, entry, peak, exit]
+        self.open = [0]         # the running peak of each open call
+
+    def wrap(self, name, fn):
+        cuda = torch.cuda
+
+        def tracked(*args, **kwargs):
+            self.open[-1] = max(self.open[-1], cuda.max_memory_allocated())
+            entry = cuda.memory_allocated()
+            rec = [len(self.open) - 1, name, entry, None, None]
+            self.records.append(rec)
+            cuda.reset_peak_memory_stats()
+            self.open.append(entry)
+            out = fn(*args, **kwargs)
+            rec[3] = max(self.open.pop(), cuda.max_memory_allocated())
+            rec[4] = cuda.memory_allocated()
+            self.open[-1] = max(self.open[-1], rec[3])
+            cuda.reset_peak_memory_stats()
+            return out
+        return tracked
+
+    def report(self):
+        print(f"  {'call':44s} {'entry GB':>9s} {'peak GB':>9s} "
+              f"{'exit GB':>9s}")
+        for depth, name, entry, peak, exit_ in self.records:
+            print(f"  {'  ' * depth + name:44s} {entry / 1e9:9.3f} "
+                  f"{peak / 1e9:9.3f} {exit_ / 1e9:9.3f}")
+        self.records.clear()
+
+
+def track_memory(step, steps):
+    """Run ``steps`` calls of ``step()`` with the sharded step's stages
+    and the sparse path's calls tracked; print each step's records."""
+    from repro_torch.core import compressors as compressors_mod
+    from repro_torch.core import wire as wire_mod
+    from repro_torch.launch import train as train_mod
+
+    tracker = MemoryTracker()
+    # a wrapper holds its arguments until the call returns, so
+    # worker_update (which frees the gradients handed to it) is not wrapped
+    targets = [(train_mod, k) for k in (
+        "accumulate_loss_grads", "apply_svrg_streaming", "stale_side_grads",
+        "_packed_aggregate", "_float_aggregate")]
+    targets += [(strategy_mod, "fma_f32"), (strategy_mod, "sparse_roundtrip"),
+                (wire_mod, "_flat"), (wire_mod, "select_support"),
+                (wire_mod, "scatter_selection"),
+                (compressors_mod, "_topk_support"), (torch, "topk"),
+                (torch, "nonzero")]
+    saved = [(mod, k, getattr(mod, k)) for mod, k in targets]
+    for mod, k, fn in saved:
+        setattr(mod, k, tracker.wrap(k, fn))
+    tracked_step = tracker.wrap("step", step)
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tracker.open = [0]
+        met = tracked_step()
+        torch.cuda.synchronize()
+        print(f"step {i + 1}: uploads {met.uploads}, peak "
+              f"{tracker.open[0] / 1e9:.3f} GB")
+        tracker.report()
+    for mod, k, fn in saved:
+        setattr(mod, k, fn)
 
 
 def report(timer, total, plain, run_once, top):
@@ -128,19 +215,21 @@ def profile_sharded(args):
     from repro_torch.launch.mesh import init_workers
 
     cfg = get_config("stablelm-1.6b")       # bfloat16 params and compute
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     print(f"{args.method}, {cfg.n_layers} layers, one NCCL worker")
     store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
     workers = init_workers("nccl", 1, 0, store)
     corpus = lm_worker_corpus(0, 1, N_LOCAL, SEQ, cfg.vocab, device="cuda")
     batch = {k: v[0] for k, v in corpus.items()}
-    scfg = StrategyConfig(kind="laq", **SHARDED[args.method],
+    fields, wire = SHARDED[args.method]
+    scfg = StrategyConfig(kind="laq", **fields,
                           per_leaf_radius=True, wire_backend="fused",
                           criterion=CriterionConfig(D=10, xi=0.08, t_bar=100))
     timer = StageTimer()
     opt = sgd()
     opt = Optimizer(opt.init, timer.wrap("optimizer update", opt.update))
     step = train_mod.make_train_step(cfg, workers, scfg, opt, lr=1e-2,
-                                     wire="packed", microbatch=ACCUM)
+                                     wire=wire, microbatch=ACCUM)
     state = [train_mod.init_train_state(init_params(0, cfg, device="cuda"),
                                         workers, scfg, opt)]
 
@@ -148,6 +237,10 @@ def profile_sharded(args):
         state[0], met = step(state[0], batch)
         return met
 
+    if args.memory:
+        track_memory(run_once, args.rounds + 1)
+        dist.destroy_process_group()
+        return
     for _ in range(args.rounds):
         run_once()
     timer.ms.clear()
@@ -160,7 +253,8 @@ def profile_sharded(args):
     timer.ms.clear()
     wrapped = {"accumulate_loss_grads": "gradients (fwd+bwd, 2 micro)",
                "worker_update": "worker_update (roundtrip, skip)",
-               "_packed_aggregate": "packed wire (codes..sum)"}
+               "_packed_aggregate": "packed wire (codes..sum)",
+               "_float_aggregate": "float wire (gather, sum)"}
     saved = {k: getattr(train_mod, k) for k in wrapped}
     for k, name in wrapped.items():
         setattr(train_mod, k, timer.wrap(name, saved[k]))
@@ -186,6 +280,9 @@ def main():
                     "for another --arch)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--memory", action="store_true",
+                    help="sharded methods: the memory of each call, no "
+                    "times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")

@@ -81,15 +81,18 @@ class SparseSelection(NamedTuple):
 
 
 def _topk_support(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """Ascending indices of the k largest |flat|, ties to the lowest index."""
+    """Ascending indices of the k largest |flat|, ties to the lowest index.
+    The survivors are counted by ``nonzero``: a sum over the 1-byte mask
+    would first cast it to int64, 8 bytes a coordinate."""
     a = flat.abs()
     kth = torch.topk(a, k, sorted=False).values.min()
-    keep = a > kth
-    need = k - int(keep.sum())
-    if need > 0:
-        keep[torch.nonzero(a == kth).reshape(-1)[:need]] = True
+    idx = torch.nonzero(a >= kth).reshape(-1)
+    extra = idx.numel() - k
+    if extra > 0:
+        # more ties at the k-th value than places: drop the highest indices
+        a[torch.nonzero(a == kth).reshape(-1)[-extra:]] = -1.0
+        idx = torch.nonzero(a >= kth).reshape(-1)
     del a
-    idx = torch.nonzero(keep).reshape(-1)
     if idx.numel() != k:
         raise ValueError(f"top-k found {idx.numel()} of {k} survivors: the "
                          "innovation holds NaN")

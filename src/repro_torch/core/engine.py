@@ -372,6 +372,51 @@ def apply_svrg_exact(sv: SvrgState, params, grad_raw, grad_at_raw,
     return _scale_add(scale, grad_raw, corr), corr
 
 
+def apply_svrg_streaming(sv: SvrgState, params, grads, grad_at, step: int,
+                         cfg: StrategyConfig):
+    """SVRG correction with a streaming one-batch anchor (the sharded
+    step's): one worker's slice, ``sv`` holding one tree per field (no
+    worker list).  Every ``cfg.svrg_period`` steps the anchor snaps to
+    ``params`` and ``mu`` to this batch's ``grads``; the anchor backprop
+    ``grad_at(theta_anchor)`` runs every step.
+
+    The refresh is the reference's arithmetic ``r·p + (1−r)·t`` with
+    ``r`` in {0., 1.}, not a select: ``0·inf`` is NaN, and ``−0 + 0`` is
+    +0, so a non-finite or negatively signed zero entry of the side not
+    taken still shows.  Both products are exact, so an FMA contraction
+    rounds alike.  ``mu_anchor`` may be None before the first refresh (the
+    reference's zeros: ``(1−r)·0 = +0``).  ``corr = mu − g_anchor`` and
+    ``grads + corr`` are plain float32 operations.
+
+    To hold memory at one copy per field, the new anchor and ``mu`` are
+    written into ``sv``'s buffers (which must not alias ``params`` or
+    another tree), ``corr`` into the anchor gradient's (``grad_at``
+    returns float32 trees), and ``grads`` (float32, the caller's) is
+    corrected in place.  Returns ``(grads, corr, sv_new)``."""
+    r = 1.0 if step % cfg.svrg_period == 0 else 0.0
+
+    def blend(new, old):
+        x = new.to(F32) * r
+        if old is None:
+            if r != 1.0:
+                raise ValueError("mu_anchor is unset on a step that does not "
+                                 "refresh the SVRG anchor")
+            return x.add_(0.0)
+        return torch.add(x, old.mul_(1.0 - r), out=old)
+
+    if sv.mu_anchor is None:
+        mu = tree_map(lambda g: blend(g, None), grads)
+    else:
+        mu = tree_map(blend, grads, sv.mu_anchor)
+    theta_anchor = tree_map(blend, params, sv.theta_anchor)
+    corr = grad_at(theta_anchor)
+    for c, m, g in zip(tree_leaves(corr), tree_leaves(mu),
+                       tree_leaves(grads)):
+        torch.sub(m, c, out=c)
+        g.add_(c)
+    return grads, corr, SvrgState(theta_anchor, mu)
+
+
 def stale_side_grads(grad_at_raw, theta_last_m, corr_m, scale: float):
     """The WK2 second backprop: this round's minibatch at the worker's
     stale iterate, scaled, with its SVRG correction (if any) added."""

@@ -46,7 +46,7 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 from .criterion import CriterionConfig, rhs_threshold
-from .quantize import fma_f32, tree_sq_norm
+from .quantize import fma_f32, tree_sq_norm, tree_sq_norm_diff
 
 F32 = torch.float32
 LAZY_RULES = ("laq7a", "lasg_wk", "lasg_wk2", "lasg_ps")
@@ -202,14 +202,26 @@ def should_skip_rule(rule: str, lasg: LasgConfig, crit: CriterionConfig, *,
     return bool(lhs <= rhs) and int(clock) < crit.t_bar
 
 
+def wk2_same_diff_sq(lazy_m: LazyState, grad_m, grad_stale_m) -> torch.Tensor:
+    """WK2's ``||g(theta; xi) - g(theta_hat; xi)||^2``, one leaf's
+    difference live at a time.  +inf until the worker's first upload: the
+    bootstrap guard (``theta_last`` is then the current iterate and the
+    difference zero), which forces the upload."""
+    if not float(lazy_m.stat_count) > 0:
+        return _f32(math.inf)
+    return tree_sq_norm_diff(grad_m, grad_stale_m).cpu()
+
+
 def lazy_rule_step(rule: str, lasg: LasgConfig, crit: CriterionConfig, *,
                    grad_m, params, lazy_m: LazyState, innovation_sq, err_sq,
                    eps_hat_sq_m, clock_m, theta_hist, alpha, n_workers: int,
-                   grad_stale_m=None):
+                   same_diff_sq=None):
     """Evaluate ``rule`` for one worker.  Returns ``(skip, lazy_pre,
     stats)``: the decision, the slice with the fields that update every
-    round, and the scalars :func:`commit_upload` needs."""
-    sigma_sq = drift_sq = same_diff_sq = _f32(0.0)
+    round, and the scalars :func:`commit_upload` needs.  ``lasg_wk2``
+    takes ``same_diff_sq``, the :func:`wk2_same_diff_sq` of ``grad_m``
+    and the current minibatch's gradient at the stale iterate."""
+    sigma_sq = drift_sq = _f32(0.0)
     lazy_pre = lazy_m
     if rule == "lasg_wk":
         if lazy_m.grad_ema is None:
@@ -217,29 +229,21 @@ def lazy_rule_step(rule: str, lasg: LasgConfig, crit: CriterionConfig, *,
                              "allocate it with init_comm_state")
         sigma_sq, lazy_pre = variance_update(lazy_m, grad_m, lasg)
     elif rule == "lasg_wk2":
-        if params is None or grad_stale_m is None:
+        if params is None or same_diff_sq is None:
             raise ValueError("lazy_rule='lasg_wk2' needs the current params "
-                             "and grad_stale_m, the current minibatch's "
-                             "gradient at the stale iterate")
+                             "and same_diff_sq, wk2_same_diff_sq of the "
+                             "gradient and grad_stale_m, the current "
+                             "minibatch's gradient at the stale iterate")
         if lazy_m.theta_last is None:
             raise ValueError("lazy_rule='lasg_wk2' needs LazyState.theta_last; "
                              "allocate it with init_comm_state")
-        if float(lazy_m.stat_count) > 0:
-            same_diff_sq = tree_sq_norm(tree_map(
-                lambda g, gs: g.to(F32) - gs.to(F32),
-                grad_m, grad_stale_m)).cpu()
-        else:
-            # bootstrap guard: until the first upload theta_last is the
-            # current iterate and the difference is zero; force the upload
-            same_diff_sq = _f32(math.inf)
     elif rule == "lasg_ps":
         if params is None:
             raise ValueError("lazy_rule='lasg_ps' needs the current params")
         if lazy_m.theta_last is None:
             raise ValueError("lazy_rule='lasg_ps' needs LazyState.theta_last; "
                              "allocate it with init_comm_state")
-        drift_sq = tree_sq_norm(tree_map(lambda p, t: p.to(F32) - t,
-                                         params, lazy_m.theta_last)).cpu()
+        drift_sq = tree_sq_norm_diff(params, lazy_m.theta_last).cpu()
     skip = should_skip_rule(
         rule, lasg, crit, theta_hist=theta_hist, alpha=alpha, M=n_workers,
         eps_sq=err_sq, eps_hat_sq=eps_hat_sq_m, clock=clock_m,

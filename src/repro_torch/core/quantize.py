@@ -95,6 +95,17 @@ def tree_sq_norm(tree) -> torch.Tensor:
     return torch.stack([l.to(F32).square().sum() for l in leaves]).sum()
 
 
+def tree_sq_norm_diff(a_tree, b_tree) -> torch.Tensor:
+    """``tree_sq_norm(a - b)`` with one leaf's difference live at a time
+    (the same per-leaf sums, stacked and summed)."""
+    parts = [(a.to(F32) - b.to(F32)).square().sum()
+             for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree))
+             if a.numel()]
+    if not parts:
+        return torch.zeros((), dtype=F32)
+    return torch.stack(parts).sum()
+
+
 def tree_size(tree) -> int:
     """Total number of coordinates p."""
     return sum(l.numel() for l in tree_leaves(tree))
@@ -147,9 +158,16 @@ def dequantize_leaf(q: torch.Tensor, R: torch.Tensor, bits: int = None, *,
     for a width selected at run time."""
     if two_tau is None:
         two_tau = two_tau_f32(bits, R.device)
-    denom = two_tau.to(R.device) * R
-    d = (denom.double() * q.double() - R.double()).to(F32)
-    return torch.where(R > 0, d, torch.zeros_like(d))
+    denom = (two_tau.to(R.device) * R).double()
+    if R.dim():
+        d = (denom * q.double() - R.double()).to(F32)
+    else:   # one radius: the float64 work in chunks, as fma_f32's
+        d = torch.empty(q.shape, dtype=F32, device=q.device)
+        fq, fd, Rd = q.reshape(-1), d.view(-1), R.double()
+        for i in range(0, fq.numel(), _FMA_CHUNK):
+            j = slice(i, i + _FMA_CHUNK)
+            fd[j] = (denom * fq[j].double() - Rd).to(F32)
+    return d.masked_fill_(~(R > 0), 0.0)
 
 
 def quantize_innovation(grad, qhat, bits: int, per_leaf: bool = False):

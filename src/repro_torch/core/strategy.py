@@ -55,7 +55,7 @@ from .defense import (AGGREGATORS, DefenseConfig, DefenseState,
 from .faults import CORRUPT_KINDS, FaultConfig, flip_wire_codes
 from .lazy_rules import (LAZY_RULES, LasgConfig, LazyState, commit_upload,
                          empty_lazy_state, init_lazy_state, lazy_rule_step,
-                         store_slice, worker_slice)
+                         store_slice, wk2_same_diff_sq, worker_slice)
 from .quantize import (dense_bits, fma_f32, sparse_upload_bits, tree_size,
                        tree_sq_norm, upload_bits)
 from .wire import get_backend, sparse_roundtrip
@@ -167,7 +167,7 @@ def check_supported(cfg: StrategyConfig):
     if cfg.state_bf16:
         raise NotImplementedError(
             f"{cfg} switches on a feature that is not ported yet "
-            f"(ROADMAP.md queue 1: LM workload)")
+            f"(ROADMAP.md queue 1: Memory: state_bf16)")
 
 
 class SvrgState(NamedTuple):
@@ -336,6 +336,13 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
     if lazy_m is None:
         lazy_m = empty_lazy_state()
     available = avail_m is None or bool(avail_m)
+    same_diff_sq = None
+    if cfg.lazy and cfg.lazy_rule == "lasg_wk2" and grad_stale_m is not None:
+        # the same-sample difference first, so that the stale gradient is
+        # freed (when the caller holds no other reference) before the
+        # quantizer's buffers exist
+        same_diff_sq = wk2_same_diff_sq(lazy_m, grad_m, grad_stale_m)
+    del grad_stale_m
     p = tree_size(grad_m)
     n_sidecars = len(tree_leaves(grad_m)) if cfg.per_leaf_radius else 1
     R_anchor_in = (torch.zeros((), dtype=F32) if R_anchor_m is None
@@ -415,8 +422,8 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
             params=params, lazy_m=lazy_m, innovation_sq=innovation_sq,
             err_sq=err_sq, eps_hat_sq_m=eps_hat_sq_m, clock_m=clock_m,
             theta_hist=theta_hist, alpha=alpha, n_workers=n_workers,
-            grad_stale_m=grad_stale_m)
-    del grad_m, grad_stale_m
+            same_diff_sq=same_diff_sq)
+    del grad_m
     uploaded = (not skip) and available
 
     if cfg.faults.wire_faulty and flip_m is not None and uploaded:

@@ -28,11 +28,13 @@ order, starting from 0.  The float and packed wires then give
 bitwise-equal parameters, as in the reference.
 
 State: each rank holds a one-worker slice of the per-worker ``CommState``
-fields (``qhat`` a list of one pytree; ``eps_hat_sq``, ``clocks``,
-``bits_spent``, ``R_anchor`` of shape [1], as the reference's
-``_squeeze0`` sees them) and the replicated fields (``server_agg``,
-``theta_hist``, ``total_bits``, ``total_uploads``, ``step``).  The step
-updates the state's ``server_agg`` in place.
+fields (``qhat``, and the pytrees of ``lazy``, ``svrg`` and ``error``, in
+lists of one; ``eps_hat_sq``, ``clocks``, ``bits_spent``, ``R_anchor`` and
+the ``lazy`` scalars of shape [1], as the reference's ``_squeeze0`` sees
+them) and the replicated fields (``server_agg``, ``theta_hist``,
+``total_bits``, ``total_uploads``, ``step``).  The step consumes the
+state it is given: it updates ``server_agg``, the SVRG anchor and ``mu``,
+the LASG state and the EF residual in place, so that each is held once.
 
 Ported: ``wire`` float and packed, fixed width b in {2, 4, 8} and the
 adaptive ``BitSchedule`` over the {2, 4, 8} grid, per-leaf or global
@@ -40,13 +42,21 @@ radius, ``microbatch >= 1``, ``eta_schedule``, ``bernoulli`` / ``fixed_k``
 participation (each worker reads its slot of the cohort mask every
 worker draws alike) and the per-worker defense: validation and the norm
 gate on both wires, where a rejected upload is masked off the packed
-wire exactly like a skip, and the clip on the float wire.  What the
-reference refuses (``delay`` / ``markov`` participation, fault injection,
-a robust aggregator, the clip on the packed wire) raises ``ValueError``
-with its reason; the branches not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.  The reference's
-``train_state_specs``, ``batch_specs`` and ``_match_param_spec`` place
-arrays on a TPU mesh (PartitionSpecs) and have no counterpart here.
+wire exactly like a skip, and the clip on the float wire.  Every lazy
+rule (``laq7a``, ``lasg_wk``, ``lasg_wk2``, ``lasg_ps``) and SVRG's
+streaming anchor (:func:`repro_torch.core.engine.apply_svrg_streaming`)
+on both wires: the anchor's and WK2's stale-iterate backprops go through
+the same microbatch fold as the primal one.  The top-k and rand-k
+compressors, with and without error feedback, on the float wire, with
+the engine's analytic bit accounting (each worker's rand-k key is its
+slot of the step's keys).  What the reference refuses (``delay`` /
+``markov`` participation, fault injection, a robust aggregator, the clip
+on the packed wire, a compressor or error feedback on the packed wire)
+raises ``ValueError`` with its reason; pods, a model axis > 1 and
+``state_bf16`` raise ``NotImplementedError`` naming their ROADMAP item.
+The reference's ``train_state_specs``, ``batch_specs`` and
+``_match_param_spec`` place arrays on a TPU mesh (PartitionSpecs) and have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -55,13 +65,17 @@ from typing import NamedTuple
 import torch
 
 from ..core.adaptive import eta_at, tau_of_selection
+from ..core.compressors import compressor_keys
 from ..core.criterion import push_history
 from ..core.defense import DefenseState, defense_slice
-from ..core.engine import (accumulate_loss_grads, participation_mask,
+from ..core.engine import (accumulate_loss_grads, apply_svrg_streaming,
+                           participation_mask, stale_side_grads,
                            value_and_grad)
-from ..core.quantize import dequantize_leaf, tree_sq_norm, two_tau_f32
-from ..core.strategy import (CommState, StrategyConfig, check_supported,
-                             init_comm_state, worker_update)
+from ..core.lazy_rules import store_slice, worker_slice
+from ..core.quantize import (dequantize_leaf, tree_sq_norm, tree_sq_norm_diff,
+                             two_tau_f32)
+from ..core.strategy import (CommState, StrategyConfig, SvrgState,
+                             check_supported, init_comm_state, worker_update)
 from ..core.wire import (get_backend, pack_codes_along_axis,
                          unpack_codes_along_axis)
 from ..models.config import ModelConfig
@@ -114,7 +128,7 @@ def _decode(payload, R, keep, two_tau, provision, orig):
     ``where(R > 0, 2 tau R q - R, 0) * keep``, the dequantization rounded
     once as XLA's FMA rounds it."""
     codes = unpack_codes_along_axis(payload, provision, orig)
-    return dequantize_leaf(codes, R, two_tau=two_tau) * keep
+    return dequantize_leaf(codes, R, two_tau=two_tau).mul_(keep)
 
 
 def _packed_aggregate(grads, qhat, skip: bool, strategy: StrategyConfig,
@@ -202,17 +216,6 @@ def _packed_aggregate(grads, qhat, skip: bool, strategy: StrategyConfig,
             tree_unflatten(treedef, qnew_leaves) if with_q_new else None)
 
 
-def _sq_norm_of_diff(a_tree, b_tree) -> torch.Tensor:
-    """``tree_sq_norm(a - b)`` with one leaf's difference live at a time
-    (the same per-leaf sums, stacked and summed)."""
-    parts = [(a.to(F32) - b.to(F32)).square().sum()
-             for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree))
-             if a.numel()]
-    if not parts:
-        return torch.zeros((), dtype=F32)
-    return torch.stack(parts).sum()
-
-
 def _float_aggregate(delta_masked, template, workers: WorkerGroup):
     """The float wire: the W workers' skip-masked deltas summed leaf by
     leaf in worker order (a skipped worker sends zeros)."""
@@ -261,14 +264,13 @@ def _check_step_supported(strategy: StrategyConfig, wire: str, worker_axes,
             "norm-clipping on the packed wire would need a per-worker f32 "
             "scale sidecar (codes are integers); clip rides the float wire, "
             "validate/gate work on both (a reject is one mask bit)")
-    if (strategy.lazy and strategy.lazy_rule != "laq7a") or (
-            strategy.grad_mode != "sgd"):
-        _not_ported(f"lazy_rule={strategy.lazy_rule!r} / grad_mode="
-                    f"{strategy.grad_mode!r}",
-                    "Sharded step: Lazy rules and SVRG")
-    if strategy.compressed or strategy.error_feedback:
-        _not_ported("the compressor / error-feedback wire",
-                    "Sharded step: compressors and error feedback")
+    if wire == "packed" and (strategy.compressed or strategy.error_feedback):
+        raise ValueError(
+            "compressor / error_feedback strategies require wire='float': "
+            "the packed wire re-quantizes the raw gradients itself (dense "
+            "per-leaf codes), and the sparse pipeline's index+code payload "
+            "has no byte layout in the exchange; the compressor path rides "
+            "the float wire with analytic bit accounting")
     if hierarchical or tuple(worker_axes) != ("data",):
         _not_ported(f"worker axes {tuple(worker_axes)} (hierarchical="
                     f"{hierarchical})", "Pods and hierarchical workers")
@@ -307,8 +309,11 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
         return lm_loss(p, b, cfg) / W          # sum_m loss_m == global mean
 
     def loss_and_grads(params, batch):
-        """Loss and float32 gradients (the wire kernels take float32; the
-        reference's wire casts each leaf itself)."""
+        """Loss and float32 gradients at an iterate: the current params,
+        the WK2 stale iterate or the SVRG anchor (float32 trees, whose
+        weights ``layers.linear`` casts to the activations' dtype), each
+        through the same microbatch fold.  The wire kernels take float32;
+        the reference's wire casts each leaf itself."""
         if microbatch == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
             return loss, tree_map(lambda g: g.to(F32), grads)
@@ -319,21 +324,61 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
     def step(state: TrainState, batch):
         params, comm = state.params, state.comm
         qhat = comm.qhat[0]
+        dev = tree_leaves(params)[0].device
         loss, grads = loss_and_grads(params, batch)
         lr_k = eta_at(strategy.eta_schedule, lr, comm.step)
-        # this worker's slot of the round's cohort: every worker draws the
-        # same [W] mask from (participation_seed, step)
+
+        def grad_at(theta):
+            return loss_and_grads(theta, batch)[1]
+
+        corr = None
+        if strategy.variance_reduced:
+            # the streaming anchor, refreshed in its own buffers; its
+            # backprop runs every step through the same microbatch fold
+            grads, corr, sv = apply_svrg_streaming(
+                SvrgState(comm.svrg.theta_anchor[0], comm.svrg.mu_anchor[0]),
+                params, grads, grad_at, comm.step, strategy)
+            comm.svrg.theta_anchor[0], comm.svrg.mu_anchor[0] = sv
+            del sv
+        lazy_m = worker_slice(comm.lazy, 0)
+        # the WK2 stale side, the same batch at the iterate of the last
+        # upload with the SVRG correction, so that anchor and mu cancel
+        stale = [stale_side_grads(grad_at, lazy_m.theta_last, corr, 1.0)
+                 if strategy.lazy and strategy.lazy_rule == "lasg_wk2"
+                 else None]
+        del corr
+        # this worker's slot of the round's cohort and of the rand-k keys:
+        # every worker draws the same [W] mask and keys from the step
         mask = participation_mask(strategy, comm.step, W)
-        wu = worker_update(grads, qhat, comm.eps_hat_sq[0], comm.clocks[0],
-                           comm.theta_hist, lr_k, W, strategy,
+        ckey = (compressor_keys(strategy.compressor_seed, comm.step, W,
+                                device=dev)[workers.rank]
+                if strategy.compressor == "randk" else None)
+        error = comm.error.residual
+        # handed over, not held here: worker_update drops the stale side,
+        # and on the float wire the gradient, once its rule has read them
+        handed = [grads]
+        if wire == "float":
+            del grads
+        wu = worker_update(handed.pop(), qhat, comm.eps_hat_sq[0],
+                           comm.clocks[0], comm.theta_hist, lr_k, W, strategy,
                            bits_spent_m=comm.bits_spent[0], step=comm.step,
                            R_anchor_m=comm.R_anchor[0],
+                           error_m=None if error is None else error[0],
+                           lazy_m=lazy_m, params=params,
+                           grad_stale_m=stale.pop(), ckey_m=ckey,
                            avail_m=None if mask is None
                            else bool(mask[workers.rank]),
                            defense_m=(defense_slice(comm.defense, 0)
                                       if strategy.defense.active else None))
+        del lazy_m
+        # the new LASG slice and EF residual into the state, in place, as
+        # the engine's aggregate stores them: a replaced theta_last or
+        # residual is freed here, not after the wire and the update
+        store_slice(comm.lazy, 0, wu.lazy_new)
+        if wu.error_new is not None:
+            comm.error.residual[0] = wu.error_new
         delta_masked = wu.delta_masked
-        wu = wu._replace(delta_masked=None)
+        wu = wu._replace(delta_masked=None, lazy_new=None, error_new=None)
         if wire == "float":
             agg_delta = _float_aggregate(delta_masked, params, workers)
             del delta_masked
@@ -346,7 +391,7 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
                 width=(torch.tensor(wu.width_m, dtype=F32)
                        if strategy.adaptive else None),
                 with_q_new=False)
-        del grads
+            del grads
 
         # the server recursion agg^k = agg^{k-1} + sum_m delta_m, in place
         agg = comm.server_agg
@@ -355,10 +400,9 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
         del agg_delta
         new_params, new_opt = optimizer.update(agg, state.opt_state, params,
                                                lr_k)
-        dtheta_sq = _sq_norm_of_diff(new_params, params).cpu()
+        dtheta_sq = tree_sq_norm_diff(new_params, params).cpu()
         del params
 
-        dev = tree_leaves(agg)[0].device
         mine = torch.stack([loss.to(F32).reshape(()).to(dev),
                             torch.tensor(float(wu.uploaded), device=dev),
                             wu.bits_m.to(dev)])
@@ -391,6 +435,11 @@ def init_train_state(params, workers: WorkerGroup, strategy: StrategyConfig,
     """This worker's initial state around the parameters the caller gives
     (the same on every worker; :mod:`repro_torch.convert` carries the
     reference's over).  ``qhat`` and ``server_agg`` are float32 zeros on
-    the parameters' device."""
-    return TrainState(params, optimizer.init(params),
-                      init_comm_state(params, 1, strategy), 0)
+    the parameters' device; ``theta_last`` (``lasg_wk2``, ``lasg_ps``)
+    references the float32 parameters, and the SVRG anchor is a float32
+    copy of them, since the step refreshes it in place."""
+    comm = init_comm_state(params, 1, strategy)
+    if strategy.variance_reduced:
+        comm = comm._replace(svrg=SvrgState(
+            [tree_map(lambda l: l.to(F32, copy=True), params)], [None]))
+    return TrainState(params, optimizer.init(params), comm, 0)

@@ -58,6 +58,14 @@ def test_topk_support_breaks_ties_like_jax(k):
                                               == kth).sum()
 
 
+@pytest.mark.parametrize("k", [1, 700, 4999])
+def test_topk_support_refuses_a_nan_innovation(k):
+    flat = torch.from_numpy(_planted_ties(k))
+    flat[17] = float("nan")
+    with pytest.raises(ValueError, match="holds NaN"):
+        tcomp.select_support("topk", flat, k)
+
+
 @pytest.mark.parametrize("bits", (1, 2, 4, 8))
 def test_sparse_grid_matches_reference(bits):
     v = (np.random.default_rng(bits).standard_normal(3001) * 1e-2).astype(

@@ -572,5 +572,5 @@ def test_check_supported_gates_only_bf16_state_of_participation_and_robustness()
                                  clip_mult=3.0, reconcile_crashes=False)),
                dict(aggregator="median"), dict(aggregator="trimmed_mean")):
         check_supported(C.strategy(True, kind="laq", bits=4, **kw))
-    with pytest.raises(NotImplementedError, match="LM workload"):
+    with pytest.raises(NotImplementedError, match="Memory: state_bf16"):
         check_supported(C.strategy(True, state_bf16=True))

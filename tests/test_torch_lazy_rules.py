@@ -187,11 +187,13 @@ def test_lazy_rule_step_and_commit(rule, count):
         rng = np.random.default_rng(100 * trial + int(count))
         js, ts, g, gs, params, scal, hist = _step_inputs(rng, rule, count)
         skip_j, new_j, stats_j = ref(js, g, gs, params, scal, hist)
+        same = (T.wk2_same_diff_sq(ts, _t(g), _t(gs))
+                if rule == "lasg_wk2" else None)
         skip_t, pre_t, stats_t = T.lazy_rule_step(
             rule, cfg_t, crit_t, grad_m=_t(g), params=_t(params), lazy_m=ts,
             theta_hist=torch.from_numpy(hist), alpha=0.3, n_workers=6,
-            grad_stale_m=_t(gs), **{k: torch.tensor(v)
-                                    for k, v in scal.items()})
+            same_diff_sq=same, **{k: torch.tensor(v)
+                                  for k, v in scal.items()})
         new_t = T.commit_upload(rule, cfg_t, pre_t, not skip_t, stats_t,
                                 params=_t(params),
                                 innovation_sq=torch.tensor(

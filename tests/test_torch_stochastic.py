@@ -137,6 +137,30 @@ def test_port_matches_live_reference_in_the_default_layout(kind, backend):
     _check(got, ref, f"live/{kind}/{backend}")
 
 
+@pytest.mark.parametrize("compressor", ("topk", "randk"))
+def test_same_sample_rule_with_error_feedback_matches_live_reference(
+        compressor):
+    """lasg_wk2 over the EF compressor wire: the rule reads the raw
+    minibatch gradients while the wire sends the EF-corrected ones (the
+    port once dropped the raw gradient under error feedback and raised)."""
+    X, Y = regression_data()
+    ef = dict(compressor=compressor, compressor_k=0.5, error_feedback=True)
+    want = jrun(_jax_loss, {"w": jnp.zeros((P,))}, (X, Y), "slaq_wk2",
+                steps=50, alpha=0.3, batch=4, bits=4, seed=2,
+                laq_cfg=_cfg(JStrategy, JCriterion, "fused",
+                             "sgd")._replace(**ef))
+    got = run_stochastic(loss_fn, {"w": torch.zeros(P)},
+                         (torch.from_numpy(X), torch.from_numpy(Y)),
+                         "slaq_wk2", steps=50, alpha=0.3, batch=4, bits=4,
+                         seed=2, laq_cfg=_cfg(StrategyConfig, CriterionConfig,
+                                              "fused", "sgd")._replace(**ef),
+                         device="cpu")
+    ref = {f: np.asarray(getattr(want, f)) for f in EXACT + CLOSE}
+    ref["params0"] = np.asarray(want.params["w"])
+    _check(got, ref, f"live/slaq_wk2/ef_{compressor}")
+    assert M < int(got.cum_uploads[-1]) < 50 * M
+
+
 def test_baselines_need_a_stochastic_source_and_known_kinds():
     from repro_torch.core.engine import FullBatchSource, RoundEngine
     X, Y = regression_data()

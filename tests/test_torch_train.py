@@ -10,19 +10,26 @@ port runs on four gloo ranks.  Both start from the same parameters (numpy,
 carried into the port by ``repro_torch.convert``) and the same batch;
 worker m takes rows [2m, 2m + 2), whose tokens come from vocabularies of
 different sizes, so that the skip rule (xi = 0.3 without the quantization
-slack; 0.5 on the hybrid, ``torch_dist_cases.TRAIN_CRITERIA``) keeps some
-workers and not others after step 1.  Five
-configurations of 3 steps: the float wire, the packed wire at b=4, the
+slack, or the configuration's own in ``torch_dist_cases.TRAIN_CRITERIA``)
+keeps some workers and not others after step 1.  The
+configurations, 3 steps each: the float wire, the packed wire at b=4, the
 packed wire with the adaptive schedule on the grid (2, 4, 8), whose
 absolute thresholds give the workers different widths, and the packed
 wire at b=4 on smoke qwen3-moe-30b-a3b (15 leaves; its router's aux enters
 the loss and the gradient through ``lm_loss``) and on smoke zamba2-2.7b
-(29 leaves: the Mamba2 blocks and the shared attention block); and both
-wires
+(29 leaves: the Mamba2 blocks and the shared attention block); the lazy
+rules lasg_wk, lasg_wk2 and lasg_ps and SVRG's streaming anchor
+(refreshed in steps 1 and 3) on the packed wire, lasg_wk2 + SVRG on both
+wires (the anchor's and the stale iterate's backprops through the same
+microbatch fold), and EF-top-k, rand-k and EF-rand-k on the float wire
+(``torch_dist_cases.TRAIN_RULES``, each with a criterion that splits the
+workers); and both wires
 with bernoulli participation (p=0.5) and the defense's validation and
 norm gate, where each worker reads its slot of the round's cohort and an
 absent or rejected worker is masked off the wire like a skip.  All run
-``microbatch=2`` and the 1/t stepsize.
+``microbatch=2`` and the 1/t stepsize.  The reference's state is built
+around the test's parameters (``init_comm_state``): lasg_ps and lasg_wk2
+snapshot the initial iterate, SVRG anchors at it.
 
 Tolerances: uploads, bits and each worker's cumulative bits (which fix its
 widths) exactly; the loss to rtol 1e-4 (the two frameworks reduce in other
@@ -65,7 +72,7 @@ from repro.configs import get_config, smoke_config
 from repro.core.adaptive import BitSchedule, EtaSchedule
 from repro.core.criterion import CriterionConfig
 from repro.core.defense import DefenseConfig
-from repro.core.strategy import StrategyConfig
+from repro.core.strategy import StrategyConfig, init_comm_state
 from repro.launch.train import init_train_state, make_train_step
 from repro.models import init_params
 from repro.optim import sgd
@@ -95,12 +102,16 @@ for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
     strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
                            criterion=CriterionConfig(**C.TRAIN_CRITERIA.get(
                                config, C.TRAIN_CRITERION)),
-                           eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra)
+                           eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra,
+                           **C.TRAIN_RULES.get(config, {}))
     opt = sgd()
     state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
                              ("data",))
-    state = state._replace(params=jax.tree.map(jnp.asarray, params0),
-                           opt_state=opt.init(params0))
+    # the state around params0: lasg_ps and lasg_wk2 snapshot the
+    # initial iterate as theta_last, SVRG as its anchor
+    params = jax.tree.map(jnp.asarray, params0)
+    state = state._replace(params=params, opt_state=opt.init(params),
+                           comm=init_comm_state(params, C.TRAIN_W, strat))
     step = jax.jit(make_train_step(
         cfg, mesh, strat, opt, lr=C.TRAIN_LR, worker_axes=("data",),
         wire="float" if config.endswith("float") else "packed",
@@ -185,15 +196,32 @@ def test_loss_and_params_match_reference(runs, config):
                                    err_msg=k)
 
 
-def test_packed_and_float_wires_give_bitwise_equal_params(runs):
-    _, got = runs
+def _wires_bitwise(got, float_cfg, packed_cfg, fields):
     for g in got:
-        f, p = _params(g, "float"), _params(g, "packed")
+        f, p = _params(g, float_cfg), _params(g, packed_cfg)
+        assert f.keys() == p.keys()
         for k in f:
             np.testing.assert_array_equal(p[k], f[k], err_msg=k)
-        for field in ("loss", "uploads", "bits", "grad_sq", "bits_spent"):
-            np.testing.assert_array_equal(g[f"packed/{field}"],
-                                          g[f"float/{field}"])
+        for field in fields:
+            np.testing.assert_array_equal(g[f"{packed_cfg}/{field}"],
+                                          g[f"{float_cfg}/{field}"])
+
+
+def test_packed_and_float_wires_give_bitwise_equal_params(runs):
+    _, got = runs
+    _wires_bitwise(got, "float", "packed",
+                   ("loss", "uploads", "bits", "grad_sq", "bits_spent"))
+
+
+@pytest.mark.parametrize("float_cfg,packed_cfg", C.TRAIN_WIRE_PAIRS)
+def test_lazy_packed_and_float_wires_give_bitwise_equal_params(
+        runs, float_cfg, packed_cfg):
+    """The same check under lasg_wk2 + SVRG: the anchor's and the stale
+    iterate's backprops, the refresh and the correction are the same on
+    both wires, so only the bytes on the link differ."""
+    _, got = runs
+    _wires_bitwise(got, float_cfg, packed_cfg,
+                   ("loss", "uploads", "bits", "grad_sq", "bits_spent"))
 
 
 @pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
@@ -242,38 +270,33 @@ def test_participation_and_defense_match_reference(runs, config):
 
 def test_defended_wires_give_bitwise_equal_params(runs):
     _, got = runs
-    for g in got:
-        f, p = _params(g, "defended_float"), _params(g, "defended_packed")
-        for k in f:
-            np.testing.assert_array_equal(p[k], f[k], err_msg=k)
-        for field in ("loss", "uploads", "bits", "grad_sq", "bits_spent",
-                      "rejects"):
-            np.testing.assert_array_equal(g[f"defended_packed/{field}"],
-                                          g[f"defended_float/{field}"])
+    _wires_bitwise(got, "defended_float", "defended_packed",
+                   ("loss", "uploads", "bits", "grad_sq", "bits_spent",
+                    "rejects"))
 
 
-# (make_train_step keywords, exception, message, id).  The first ten ids
-# are the branches the sharded step lacked before participation and the
-# defense were ported: "Participation" and the two "Robustness" cases are
-# now the reference's own refusals (repro/launch/train.py), raised as
-# ValueError with its reasons.
+# (make_train_step keywords, exception or None, message, id).  The ids
+# name the branches the sharded step lacked before participation, the
+# defense, the lazy rules, SVRG and the compressors were ported:
+# "Participation", the two "Robustness" cases and the two compressor cases
+# are now the reference's own refusals (repro/launch/train.py), raised as
+# ValueError with its reasons; the two "Lazy rules and SVRG" cases build a
+# step (exception None).
 GATED = [
-    (dict(strategy=dict(lazy_rule="lasg_wk")), NotImplementedError,
-     "Lazy rules and SVRG", "Lazy rules and SVRG"),
-    (dict(strategy=dict(grad_mode="svrg")), NotImplementedError,
-     "Lazy rules and SVRG", "Lazy rules and SVRG"),
+    (dict(strategy=dict(lazy_rule="lasg_wk2")), None, None,
+     "Lazy rules and SVRG"),
+    (dict(strategy=dict(grad_mode="svrg")), None, None,
+     "Lazy rules and SVRG"),
     (dict(strategy=dict(participation="delay", max_delay=2)), ValueError,
      "simulated-engine-only", "Participation"),
     (dict(strategy=dict(faults=FaultConfig(crash_p=0.1))), ValueError,
      "fault injection", "Robustness"),
     (dict(strategy=dict(aggregator="median")), ValueError,
      "trimmed_mean/median", "Robustness"),
-    (dict(strategy=dict(compressor="topk")), NotImplementedError,
-     "Sharded step: compressors and error feedback",
-     "Sharded step: compressors and error feedback"),
-    (dict(strategy=dict(error_feedback=True)), NotImplementedError,
-     "Sharded step: compressors and error feedback",
-     "Sharded step: compressors and error feedback"),
+    (dict(strategy=dict(compressor="topk")), ValueError,
+     "require wire='float'", "Sharded step: compressors and error feedback"),
+    (dict(strategy=dict(error_feedback=True)), ValueError,
+     "require wire='float'", "Sharded step: compressors and error feedback"),
     (dict(hierarchical=True), NotImplementedError,
      "Pods and hierarchical workers", "Pods and hierarchical workers"),
     (dict(worker_axes=("pod", "data")), NotImplementedError,
@@ -287,6 +310,8 @@ GATED = [
     (dict(strategy=dict(faults=FaultConfig(corrupt_p=0.1,
                                            corrupt_kind="bitflip"))),
      ValueError, "fault injection", "bitflip"),
+    (dict(strategy=dict(state_bf16=True)), NotImplementedError,
+     "Memory: state_bf16", "state_bf16"),
 ]
 
 
@@ -295,13 +320,31 @@ GATED = [
 def test_unported_branches_name_their_roadmap_item(kw, exc, match):
     """What the sharded step does not run raises: NotImplementedError
     naming the ROADMAP item of a branch not ported yet, ValueError with
-    the reference's reason where the reference refuses it too."""
+    the reference's reason where the reference refuses it too.  A branch
+    ported since builds its step on the packed wire."""
     cfg = smoke_config(get_config("stablelm-1.6b"))
     strat = StrategyConfig(kind="laq", bits=4, **kw.pop("strategy", {}))
     workers = WorkerGroup(None, 4, 0, "gloo")
+    if exc is None:
+        make_train_step(cfg, workers, strat, sgd(), lr=1e-2, wire="packed",
+                        **kw)
+        return
     with pytest.raises(exc, match=match):
         make_train_step(cfg, workers, strat, sgd(), lr=1e-2, wire="packed",
                         **kw)
+
+
+@pytest.mark.parametrize("strategy", [
+    dict(compressor="topk"), dict(compressor="randk"),
+    dict(compressor="topk", error_feedback=True),
+    dict(compressor="randk", error_feedback=True),
+    dict(error_feedback=True)], ids=["topk", "randk", "ef_topk", "ef_randk",
+                                     "ef"])
+def test_the_float_wire_takes_the_compressors(strategy):
+    cfg = smoke_config(get_config("stablelm-1.6b"))
+    make_train_step(cfg, WorkerGroup(None, 4, 0, "gloo"),
+                    StrategyConfig(kind="laq", bits=4, **strategy), sgd(),
+                    lr=1e-2, wire="float")
 
 
 def test_the_float_wire_takes_the_clip():
@@ -323,3 +366,104 @@ def test_invalid_wires_are_refused(strategy, wire):
         make_train_step(cfg, WorkerGroup(None, 4, 0, "gloo"),
                         StrategyConfig(**strategy), sgd(), lr=1e-2,
                         wire=wire)
+
+
+def _planted(rng, n=4000):
+    """float32 normals with a quarter of the entries replaced by +-0,
+    +-inf, NaN and two finite values."""
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -2.25],
+                       np.float32)
+    a = rng.standard_normal(n).astype(np.float32)
+    idx = rng.integers(0, n, n // 4)
+    a[idx] = special[rng.integers(0, len(special), len(idx))]
+    return a
+
+
+@pytest.mark.parametrize("step,period,mu_unset", [
+    (0, 2, False), (1, 2, False), (2, 2, False), (3, 5, False),
+    (0, 3, True)], ids=["refresh", "hold", "refresh_again", "hold_period5",
+                        "first_refresh_mu_unset"])
+def test_apply_svrg_streaming_matches_jitted_reference(step, period,
+                                                       mu_unset):
+    """The streaming SVRG stage against the reference's under jax.jit, with
+    -0, +-inf and NaN planted in the parameters, the anchor, the gradient
+    and mu, at refresh 1 and 0 (and at the first refresh with mu unset,
+    the reference's zeros).  The anchor gradient is ``theta * 0.5 + ga``.
+    Every output is bitwise equal where neither side is NaN, and NaN at
+    the same entries: the sign of a NaN that two NaNs or ``0 * inf`` make
+    is the platform's choice.  The refresh is arithmetic, so a select
+    (``p if r else t``) differs from the reference on these inputs."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.core.engine import apply_svrg_streaming as ref_svrg
+    from repro.core.strategy import StrategyConfig as RefStrategy
+    from repro.core.strategy import SvrgState as RefSvrg
+    from repro_torch.core.engine import apply_svrg_streaming
+    from repro_torch.core.strategy import SvrgState
+
+    rng = np.random.default_rng(11 + step + 7 * period)
+    p, t, g, m, ga = (_planted(rng) for _ in range(5))
+    if mu_unset:
+        m = np.zeros_like(m)
+
+    def ref(p, t, m, g, k):
+        return ref_svrg(RefSvrg({"w": t}, {"w": m}), {"w": p}, {"w": g},
+                        lambda th: {"w": th["w"] * 0.5 + ga}, k,
+                        RefStrategy(grad_mode="svrg", svrg_period=period))
+
+    want_g, want_c, want_sv = jax.jit(ref)(p, t, m, g, jnp.int32(step))
+    tt = lambda a: torch.from_numpy(a.copy())
+    got_g, got_c, got_sv = apply_svrg_streaming(
+        SvrgState({"w": tt(t)}, None if mu_unset else {"w": tt(m)}),
+        {"w": tt(p)}, {"w": tt(g)},
+        lambda th: {"w": th["w"] * 0.5 + tt(ga)}, step,
+        StrategyConfig(grad_mode="svrg", svrg_period=period))
+    for name, w, gt in (("grads", want_g, got_g), ("corr", want_c, got_c),
+                        ("theta_anchor", want_sv.theta_anchor,
+                         got_sv.theta_anchor),
+                        ("mu_anchor", want_sv.mu_anchor, got_sv.mu_anchor)):
+        w, gt = np.asarray(w["w"]), gt["w"].numpy()
+        np.testing.assert_array_equal(np.isnan(gt), np.isnan(w),
+                                      err_msg=name)
+        ok = ~np.isnan(w)
+        np.testing.assert_array_equal(gt[ok].view(np.uint32),
+                                      w[ok].view(np.uint32), err_msg=name)
+    r = step % period == 0
+    select = np.where(r, p, t)
+    want_anchor = np.asarray(want_sv.theta_anchor["w"])
+    assert (select.view(np.uint32) != want_anchor.view(np.uint32)).any()
+
+
+@pytest.mark.parametrize("strategy", [dict(lazy_rule="lasg_wk2"),
+                                      dict(grad_mode="svrg")],
+                         ids=["lasg_wk2", "svrg"])
+def test_reference_refuses_float32_iterates_of_a_bf16_model(strategy):
+    """lasg_wk2's stale iterate and SVRG's anchor are float32 trees, and
+    the reference takes a gradient there under the model's compute dtype:
+    with bfloat16 params its layer scan refuses the carry, which the
+    activations' promotion to float32 changes.  So the card's bfloat16
+    runs of these strategies have no oracle, and the CPU comparisons above
+    hold float32 models.  (The port's ``layers.linear`` casts the weight
+    to the activations' dtype and runs them.)"""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.configs import get_config as ref_config
+    from repro.configs import smoke_config as ref_smoke
+    from repro.core.strategy import StrategyConfig as RefStrategy
+    from repro.launch.train import init_train_state as ref_init
+    from repro.launch.train import make_train_step as ref_step
+    from repro.optim import sgd as ref_sgd
+
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    cfg = ref_smoke(ref_config("stablelm-1.6b"))     # bfloat16 params
+    assert cfg.param_dtype == jnp.bfloat16
+    strat = RefStrategy(kind="laq", bits=4, **strategy)
+    state = ref_init(jax.random.PRNGKey(0), cfg, mesh, strat, ref_sgd(),
+                     ("data",))
+    tok = jnp.zeros((2, C.TRAIN_SEQ + 1), jnp.int32)
+    step = jax.jit(ref_step(cfg, mesh, strat, ref_sgd(), lr=C.TRAIN_LR,
+                            worker_axes=("data",), wire="float"))
+    with pytest.raises(TypeError, match="carry"):
+        step(state, {"tokens": tok[:, :-1], "targets": tok[:, 1:]})

@@ -21,7 +21,7 @@ import traceback
 import numpy as np
 
 RANK_TIMEOUT = 240          # seconds for a group of spawned ranks
-JAX_TIMEOUT = 400           # seconds for a JAX subprocess
+JAX_TIMEOUT = 600           # seconds for a JAX subprocess
 
 # ---------------------------------------------------------------------------
 # The streamed packed wire (_packed_aggregate): a small tree with a leaf
@@ -74,22 +74,56 @@ def wire_strategy_kwargs(name: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # The sharded training step: smoke stablelm-1.6b in float32, W=4 workers of
-# 2 rows each, three configurations of 3 steps.  The workers' rows draw
-# their tokens from vocabularies of different sizes, so their gradients
-# differ and the skip rule splits them after step 1.
+# 2 rows each, the configurations below of 3 steps each.  The workers' rows
+# draw their tokens from vocabularies of different sizes, so their
+# gradients differ and the skip rule splits them after step 1.
 # ---------------------------------------------------------------------------
 
 TRAIN_W, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2, 32, 3, 1e-2
 TRAIN_MICROBATCH = 2
 TRAIN_CRITERION = dict(D=10, xi=0.3, t_bar=100, include_quant_error=False)
-# per-configuration criteria: at xi 0.3 every worker of smoke zamba2 uploads
-# in step 2 and none in step 3; at 0.5 two of the four skip in step 2, so
-# the run holds mixed decisions, as the stablelm runs do at 0.3
-TRAIN_CRITERIA = {"hybrid_packed": dict(TRAIN_CRITERION, xi=0.5)}
+# per-configuration criteria, each picked so that a step after the first
+# holds both a skip and an upload (uploads per step in the comment; every
+# other configuration splits at the default xi 0.3)
+TRAIN_CRITERIA = {
+    # smoke zamba2 at xi 0.3 uploads from every worker in step 2 and none
+    # in step 3; at 0.5 two of the four skip in step 2
+    "hybrid_packed": dict(TRAIN_CRITERION, xi=0.5),
+    # WK2's same-sample difference is small against the drift history: at
+    # xi >= 0.03 every worker skips after step 1; at 0.003, 4, 1, 1
+    "lasg_wk2_packed": dict(TRAIN_CRITERION, xi=0.003),
+    "wk2_svrg_float": dict(TRAIN_CRITERION, xi=0.003),
+    "wk2_svrg_packed": dict(TRAIN_CRITERION, xi=0.003),
+    # rand-k's innovations stay large: 4, 4, 4 at xi 0.3; at 0.5, 4, 4, 1
+    "randk_float": dict(TRAIN_CRITERION, xi=0.5),
+    # with error feedback 4, 4, 4 up to xi 0.5; at 1.0, 4, 4, 3
+    "ef_randk_float": dict(TRAIN_CRITERION, xi=1.0),
+}
 TRAIN_ETA = dict(kind="inv_t", t0=30.0)
 TRAIN_THRESHOLDS = (0.05, 0.07)     # absolute radius thresholds of A-LAQ
+# the lazy rules, SVRG (its anchor refreshed in steps 1 and 3) and the
+# compressors (float wire only), as StrategyConfig fields
+TRAIN_RULES = {
+    "lasg_wk_packed": dict(lazy_rule="lasg_wk"),
+    "lasg_wk2_packed": dict(lazy_rule="lasg_wk2"),
+    "lasg_ps_packed": dict(lazy_rule="lasg_ps"),
+    "svrg_packed": dict(grad_mode="svrg", svrg_period=2),
+    "wk2_svrg_float": dict(lazy_rule="lasg_wk2", grad_mode="svrg",
+                           svrg_period=2),
+    "wk2_svrg_packed": dict(lazy_rule="lasg_wk2", grad_mode="svrg",
+                            svrg_period=2),
+    "ef_topk_float": dict(compressor="topk", compressor_k=0.1,
+                          error_feedback=True),
+    "randk_float": dict(compressor="randk", compressor_k=0.1),
+    "ef_randk_float": dict(compressor="randk", compressor_k=0.1,
+                           error_feedback=True),
+}
 TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed",
-                 "hybrid_packed")
+                 "hybrid_packed") + tuple(TRAIN_RULES)
+# pairs of configurations that differ only in the wire, beside ("float",
+# "packed"): their parameters, losses, bits and ||agg||^2 must be bitwise
+# equal
+TRAIN_WIRE_PAIRS = (("wk2_svrg_float", "wk2_svrg_packed"),)
 # the model of each configuration (smoke variant, float32): stablelm unless
 # named here
 TRAIN_ARCHS = {"moe_packed": "qwen3-moe-30b-a3b",
@@ -290,7 +324,8 @@ def rank_train(workers, out_dir):
             **TRAIN_STRATEGY, bit_schedule=sched,
             criterion=CriterionConfig(**TRAIN_CRITERIA.get(
                 config, TRAIN_CRITERION)),
-            eta_schedule=EtaSchedule(**TRAIN_ETA), **extra)
+            eta_schedule=EtaSchedule(**TRAIN_ETA), **extra,
+            **TRAIN_RULES.get(config, {}))
         opt = sgd()
         params = params_from_numpy(numpy_params(shapes), device="cpu")
         state = init_train_state(params, workers, strat, opt)
