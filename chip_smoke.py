@@ -44,7 +44,11 @@ CPU or to a plain version while a CUDA tensor is at hand):
    Uploads, bits and every worker's rejections equal.
    ``run_with_watchdog`` with escalation (a temporary directory) gives
    the same log on both; a checkpoint resume on the card equals the
-   unbroken run.
+   unbroken run.  A NaN innovation under top-k: the support of 2^20
+   planted values (ties, NaN of both signs, +-inf), kernel 7 on its NaN
+   and infinite grids, and the 10-worker quadratic under EF-top-k with
+   NaN corruption (6 rounds, with validation and without), card vs CPU;
+   the rejects must be the reference's.
 4. The paths, each through ``RoundEngine.round`` with the kernels' launch
    counters zeroed just before it and read just after, on stablelm-1.6b at
    its published widths (d_model 2048, vocab 100352), float32 params and
@@ -81,14 +85,24 @@ CPU or to a plain version while a CUDA tensor is at hand):
    iterate's backprops at float32 iterates under bfloat16 compute, the
    same 24 + 12 + 12 launches a step; and of phase 4's EF-top-k (b=4, 5%)
    on the float wire: sparse_quantize_pack once a step, the dense kernels
-   never.  Losses finite, step 1 uploads, peak allocation below 76 GB.
+   never.  Then b=4 with ``qhat`` and ``server_agg`` in bfloat16
+   (``state_bf16``), 3 steps on each wire: the packed wire's launches as
+   b=4's, the float wire's absmax 12 and quantize_pack_fused 12 a step;
+   the two wires' parameters, losses, uploads and bits equal, the state
+   bf16 after every step, each peak printed beside b=4's.  Losses
+   finite, step 1 uploads, peak allocation below 76 GB.  First, the
+   strategies of ``SHARDED_SMALL`` at smoke size, card vs CPU.
 6. The exchange on the card: W=4 gloo ranks on the one card (payloads
-   staged through pinned host memory), stablelm-1.6b at full width and 2
+   staged through pinned host memory; each rank is this script run as
+   ``chip_smoke.py --exchange-rank RANK PORT OUT``, which writes its
+   result to the JSON file OUT, and every rank is reaped before the
+   phase ends), stablelm-1.6b at full width and 2
    layers, 3 steps each of the float wire and the packed wire at b=4 from
    the same parameters and batch, then 3 of each with bernoulli
    participation (p=0.5) and validation with the norm gate, then 2 of
    each under lasg_wk2 + SVRG (phase 5's) at 1 layer (four ranks' states
-   at 2 layers do not fit in the card's memory): the parameters must be
+   at 2 layers do not fit in the card's memory), and 2 of each under
+   lasg_wk2 + SVRG with bfloat16 state at 2 layers: the parameters must be
    bitwise equal between the two wires, and the uploads and bits equal
    step by step and on every rank.
 7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
@@ -213,7 +227,6 @@ import dataclasses
 import gc
 import json
 import math
-import multiprocessing as mp
 import os
 import subprocess
 import sys
@@ -231,12 +244,18 @@ SMALL_ROUNDS, SMALL_ALPHA = 12, 0.05
 TIMED_LAUNCHES = 20
 SHARDED_STEPS, SHARDED_ROWS, SHARDED_MICROBATCH, SHARDED_LR = 3, 2, 2, 1e-2
 # phase 5's paths on the float wire (the others run on the packed wire)
-SHARDED_FLOAT = ("sharded_ef_topk",)
+SHARDED_FLOAT = ("sharded_ef_topk", "sharded_float_bf16")
 EXCHANGE_W, EXCHANGE_LAYERS, EXCHANGE_ROWS = 4, 2, 1
 # phase 6's lasg_wk2 + SVRG: 2 steps on each wire at 1 layer (four ranks'
 # states at 2 layers, about 17.5 GiB each, ran out of the card's memory
 # beside the five CUDA contexts)
 EXCHANGE_LAZY_STEPS, EXCHANGE_LAZY_LAYERS = 2, 1
+# the same with qhat and server_agg in bfloat16 (state_bf16), at the depth
+# where one rank's peak stays at 19.0 GB (PERF.md section 2's 76 GB over
+# four ranks), measured with scripts/profile_torch_round.py --method
+# sharded_wk2_svrg --state-bf16 --layers 2 --memory: 18.36 GB on an H100
+# 80GB HBM3 at 700 W (20.42 GB with float32 state)
+EXCHANGE_BF16_LAYERS = 2
 RANK_TIMEOUT = 600            # seconds for the phase-6 ranks
 EXCHANGE_DEFENDED = dict(participation="bernoulli", participation_p=0.5,
                          participation_seed=1)   # phase 6, with the defense
@@ -917,6 +936,124 @@ def small_slice_check(torch, ops, arch="stablelm-1.6b", methods=None,
 
 
 
+def _nan_equal(torch, label, names, got, want):
+    """:func:`_bitwise` where NaN is compared as NaN (its payload and sign
+    are the producer's): equal NaN masks, bitwise equal elsewhere."""
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: {name} shapes {tuple(a.shape)} "
+                                 f"vs {tuple(b.shape)}")
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            na, nb = a.isnan(), b.isnan()
+            if not torch.equal(na, nb):
+                raise AssertionError(f"{label}: {name} is NaN elsewhere")
+            a, b = a[~na], b[~nb]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs "
+                                 f"({(a != b).sum().item()} elements)")
+
+
+# the reference's rejects after 6 rounds of the NaN top-k case below, from
+# the JAX engine on the CPU (tests/test_torch_faults.py, "topk_validate")
+NAN_TOPK_REJECTS = [3, 2, 3, 2, 3, 2, 2, 1, 2, 0]
+
+
+def nan_topk_check(torch, ops, ref):
+    """Phase 3: a NaN innovation under top-k, card vs CPU.  The support of
+    a vector of 2^20 planted values (ties, NaN of both signs, +-inf) at
+    several k: ``jax.lax.top_k``'s order, NaN first, which CUDA's
+    ``torch.topk`` must not change; kernel 7 on its NaN (and, without NaN,
+    infinite) grid against its plain version on the card and the CPU; and
+    the 10-worker quadratic of tests/torch_engine_cases.py under top-k
+    with error feedback and NaN corruption, 6 rounds on the fused wire,
+    with validation (rejects equal to the reference's) and without (a NaN
+    loss): uploads, bits, rejects and NaN-ness equal on both devices."""
+    import numpy as np
+    from repro_torch.core.compressors import select_support, sparse_grid
+    from repro_torch.core.criterion import CriterionConfig
+    from repro_torch.core.defense import DefenseConfig
+    from repro_torch.core.engine import FullBatchSource, RoundEngine
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.strategy import StrategyConfig
+
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    flat = (rng.choice(np.array([0.5, 1.0, 1.5, 3.0], np.float32), n)
+            * np.where(rng.random(n) < 0.5, -1.0, 1.0)).astype(np.float32)
+    at = rng.choice(n, 400, replace=False)
+    flat[at[:150]] = np.nan
+    flat[at[150:300]] = -np.float32(np.nan)
+    flat[at[300:]] = np.where(np.arange(100) % 2, np.inf, -np.inf)
+    no_nan = np.where(np.isnan(flat), np.float32(0.25), flat)
+    for label, x, ks in (("NaN", flat, (100, 300, 1000, n // 20, n // 2)),
+                         ("inf", no_nan, (50, 1000, n // 20))):
+        for k in ks:
+            sel = {dev: select_support("topk", torch.from_numpy(x).to(dev), k)
+                   for dev in ("cpu", "cuda")}
+            _nan_equal(torch, f"top-k {label} k={k}", ("idx", "vals"),
+                       sel["cuda"], sel["cpu"])
+            for bits in (1, 4, 8):
+                out = {}
+                for dev, s in sel.items():
+                    lo, hi = sparse_grid(s.vals, bits)
+                    out[dev] = (lo.reshape(1), hi.reshape(1)) + tuple(
+                        ops.sparse_quantize_pack(s.vals, lo, hi, bits))
+                    if dev == "cuda":
+                        _nan_equal(torch, f"kernel 7 {label} k={k} b={bits}",
+                                   ("packed", "codes", "deq"), out[dev][2:],
+                                   ref.sparse_quantize_pack_ref(s.vals, lo, hi,
+                                                                bits))
+                _nan_equal(torch, f"sparse grid {label} k={k} b={bits}",
+                           ("lo", "hi", "packed", "codes", "deq"),
+                           out["cuda"], out["cpu"])
+        log(f"  ok top-k with {label} planted, k in {ks}: support and "
+            f"kernel 7's grid equal on card and CPU")
+
+    qrng = np.random.default_rng(0)
+    qc = torch.from_numpy(qrng.standard_normal((10, 20)).astype(np.float32))
+    qa = torch.from_numpy((0.5 + qrng.uniform(size=(10, 20)))
+                          .astype(np.float32))
+
+    def q_loss(p, data):
+        c, a = data
+        return 0.5 * torch.sum(a * torch.square(p["x"] - c)) / 10
+
+    base = dict(kind="laq", bits=4, wire_backend="fused", compressor="topk",
+                compressor_k=0.25, error_feedback=True,
+                criterion=CriterionConfig(D=10, xi=0.08, t_bar=20),
+                faults=FaultConfig(corrupt_p=0.3, corrupt_kind="nan",
+                                   fault_seed=1))
+    for name, kw in (("validate", dict(defense=DefenseConfig(validate=True))),
+                     ("undefended", {})):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = RoundEngine(FullBatchSource(q_loss, (qc.to(dev),
+                                                       qa.to(dev))),
+                              StrategyConfig(**base, **kw), alpha=0.3)
+            runs[dev] = eng.run_from(eng.init_carry({"x": torch.zeros(20)},
+                                                    device=dev), 6)
+        (ca, a), (cb, b) = runs["cuda"], runs["cpu"]
+        ra, rb = ca[1].defense.rejects, cb[1].defense.rejects
+        if not (torch.equal(a.cum_uploads, b.cum_uploads)
+                and torch.equal(a.cum_bits, b.cum_bits)
+                and torch.equal(a.loss.isnan(), b.loss.isnan())):
+            raise AssertionError(f"NaN top-k {name}: card vs CPU: "
+                                 f"{a.cum_uploads.tolist()} {a.loss.tolist()}"
+                                 f" vs {b.cum_uploads.tolist()} "
+                                 f"{b.loss.tolist()}")
+        if name == "validate" and not (ra.tolist() == rb.tolist()
+                                       == NAN_TOPK_REJECTS):
+            raise AssertionError(f"NaN top-k: rejects {ra.tolist()} (card), "
+                                 f"{rb.tolist()} (CPU), reference "
+                                 f"{NAN_TOPK_REJECTS}")
+        if name == "undefended" and not a.loss[-1].isnan():
+            raise AssertionError("NaN top-k undefended: the loss is finite")
+        log(f"  ok NaN top-k {name}: uploads {a.cum_uploads.tolist()}, "
+            f"rejects {None if ra is None else ra.tolist()}, last loss "
+            f"{a.loss[-1].item()} on card and CPU")
+
+
 def serve_small_check(torch, arch="stablelm-1.6b"):
     """Phase 3: the smoke variant of ``arch`` in float32 serves on the card
     as on the CPU: prefill of 4 x 24 tokens and 8 decode steps fed the
@@ -1185,8 +1322,9 @@ def time_new_kernels(n, torch, ops, ref):
 def sharded_strategies():
     """The sharded step's configurations (phase 5): b=4 and the adaptive
     schedule on the packed wire, lasg_wk2 + SVRG (anchor refreshed every 2
-    steps) on the packed wire at b=4, and phase 4's EF-top-k (b=4, 5%) on
-    the float wire."""
+    steps) on the packed wire at b=4, phase 4's EF-top-k (b=4, 5%) on
+    the float wire, and b=4 with ``qhat`` and ``server_agg`` in bfloat16
+    (``state_bf16``) on the packed and on the float wire."""
     from repro_torch.core.adaptive import BitSchedule
     from repro_torch.core.criterion import CriterionConfig
     from repro_torch.core.strategy import StrategyConfig
@@ -1203,6 +1341,8 @@ def sharded_strategies():
         "sharded_ef_topk": StrategyConfig(**base, compressor="topk",
                                           compressor_k=0.05,
                                           error_feedback=True),
+        "sharded_b4_bf16": StrategyConfig(**base, state_bf16=True),
+        "sharded_float_bf16": StrategyConfig(**base, state_bf16=True),
     }
 
 
@@ -1222,6 +1362,10 @@ SHARDED_SMALL = {
     "randk": (dict(compressor="randk", compressor_k=0.1), "float", 0.5),
     "ef_randk": (dict(compressor="randk", compressor_k=0.1,
                       error_feedback=True), "float", 1.0),
+    "bf16_b4": (dict(state_bf16=True), "packed", 0.3),
+    "bf16_float": (dict(state_bf16=True), "float", 0.3),
+    "bf16_wk2_svrg": (dict(lazy_rule="lasg_wk2", grad_mode="svrg",
+                           svrg_period=2, state_bf16=True), "packed", 0.003),
 }
 SHARDED_SMALL_STEPS = 4
 
@@ -1289,11 +1433,15 @@ SHARDED_KERNELS = ("absmax", "quantize_pack_fused", "quantize_pack_adaptive",
 def run_sharded_path(torch, ops, workers, method, cfg, steps):
     """Phase 5: one configuration of the sharded step at full width on one
     worker (its wire: ``SHARDED_FLOAT`` or packed), fresh params, the
-    launch counters zeroed just before the steps and read just after."""
+    launch counters zeroed just before the steps and read just after.
+    Under ``state_bf16`` the stored ``qhat`` and ``server_agg`` must be
+    bfloat16 after every step, and the final parameters are returned on
+    the host (else None)."""
     from repro_torch.data.synthetic import lm_worker_corpus
     from repro_torch.launch.train import init_train_state, make_train_step
     from repro_torch.models.model import init_params
     from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import tree_leaves
 
     corpus = lm_worker_corpus(0, 1, SHARDED_ROWS, SEQ, cfg.vocab,
                               device="cuda")
@@ -1321,9 +1469,17 @@ def run_sharded_path(torch, ops, workers, method, cfg, steps):
         log(f"  step {k + 1}: loss {met.loss.item():.6f} uploads "
             f"{met.uploads} bits {met.bits.item():.6e} ms {step_ms[-1]:.1f} "
             f"peak_alloc {peaks[-1] / 1e9:.2f} GB")
+        if strat.state_bf16:
+            dtypes = {l.dtype for l in tree_leaves(state.comm.qhat)
+                      + tree_leaves(state.comm.server_agg)}
+            if dtypes != {torch.bfloat16}:
+                raise AssertionError(f"{method}: state dtypes {dtypes} after "
+                                     f"step {k + 1}")
     launches = {name: getattr(ops, name).launches for name in SHARDED_KERNELS}
     launches["codes_adaptive_by_width"] = dict(
         ops.quantize_codes_adaptive.launches_by_width)
+    final = ([l.cpu() for l in tree_leaves(state.params)]
+             if strat.state_bf16 else None)
     del state, step, corpus, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1335,13 +1491,19 @@ def run_sharded_path(torch, ops, workers, method, cfg, steps):
     if max(peaks) >= PEAK_LIMIT:
         raise AssertionError(f"{method}: peak allocation {max(peaks)} B >= "
                              f"{PEAK_LIMIT:.0f} B")
-    return launches, recs, step_ms, peaks
+    return launches, recs, step_ms, peaks, final
 
 
-def _exchange_rank(rank, port, queue):
+def _exchange_rank(rank, port, path):
     """Phase 6, one of the EXCHANGE_W gloo ranks on the card: 3 steps of
     the float wire, then 3 of the packed wire at b=4, from the same
-    parameters and batch; puts (rank, result or error) on ``queue``."""
+    parameters and batch; writes its result, or its error, to the JSON
+    file ``path``.  Returns the process's exit code."""
+    def report(obj):
+        with open(path + ".part", "w") as f:
+            json.dump(obj, f)
+        os.replace(path + ".part", path)
+
     try:
         sys.path.insert(0, os.path.join(os.path.dirname(
             os.path.abspath(__file__)), "src"))
@@ -1371,6 +1533,7 @@ def _exchange_rank(rank, port, queue):
                                   defense=DefenseConfig(validate=True,
                                                         gate_mult=4.0))
         lazy = sharded_strategies()["sharded_wk2_svrg"]
+        lazy_bf16 = lazy._replace(state_bf16=True)
         out = {"transport": workers.transport("cuda")}
         final = {}
         for label, st, wire in (("float", strat, "float"),
@@ -1378,11 +1541,16 @@ def _exchange_rank(rank, port, queue):
                                 ("defended_float", defended, "float"),
                                 ("defended_packed", defended, "packed"),
                                 ("lazy_float", lazy, "float"),
-                                ("lazy_packed", lazy, "packed")):
+                                ("lazy_packed", lazy, "packed"),
+                                ("bf16_lazy_float", lazy_bf16, "float"),
+                                ("bf16_lazy_packed", lazy_bf16, "packed")):
             for name in SHARDED_KERNELS:
                 getattr(ops, name).launches = 0
-            lcfg = (dataclasses.replace(cfg, n_layers=EXCHANGE_LAZY_LAYERS)
-                    if label.startswith("lazy") else cfg)
+            lcfg = cfg
+            if label.startswith("lazy"):
+                lcfg = dataclasses.replace(cfg, n_layers=EXCHANGE_LAZY_LAYERS)
+            elif label.startswith("bf16"):
+                lcfg = dataclasses.replace(cfg, n_layers=EXCHANGE_BF16_LAYERS)
             state = init_train_state(init_params(0, lcfg, device="cuda"),
                                      workers, st, sgd())
             step = make_train_step(lcfg, workers, st, sgd(),
@@ -1390,7 +1558,7 @@ def _exchange_rank(rank, port, queue):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             rec = []
-            for _ in range(EXCHANGE_LAZY_STEPS if label.startswith("lazy")
+            for _ in range(EXCHANGE_LAZY_STEPS if "lazy" in label
                            else SHARDED_STEPS):
                 t0 = time.perf_counter()
                 state, met = step(state, batch)
@@ -1409,63 +1577,72 @@ def _exchange_rank(rank, port, queue):
             torch.cuda.empty_cache()
         out["params_bitwise"] = all(
             torch.equal(a, b) for a, b in zip(final["float"], final["packed"]))
-        for pre in ("defended_", "lazy_"):
+        for pre in ("defended_", "lazy_", "bf16_lazy_"):
             out[f"{pre}params_bitwise"] = all(
                 torch.equal(a, b) for a, b in zip(final[f"{pre}float"],
                                                   final[f"{pre}packed"]))
         out["n_params"] = sum(t.numel() for t in final["float"])
         out["lazy_n_params"] = sum(t.numel() for t in final["lazy_float"])
+        out["bf16_lazy_n_params"] = sum(t.numel()
+                                        for t in final["bf16_lazy_float"])
         dist.destroy_process_group()
-        queue.put((rank, out))
-    except BaseException as e:                   # reported, then re-raised
+        report(out)
+        return 0
+    except BaseException as e:                   # reported, then exit 1
         import traceback
-        queue.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
-        raise
+        report({"error": f"{e!r}\n{traceback.format_exc()}"})
+        return 1
 
 
 def exchange_on_card(torch):
     """Phase 6: EXCHANGE_W gloo ranks on the one card; every rank's float
     and packed parameters must be bitwise equal, and the uploads and bits
-    equal step by step.  Returns rank 0's record."""
+    equal step by step.  Each rank is this script in a process of its own;
+    all of them have exited, or been killed and reaped, when this returns.
+    Returns rank 0's record."""
     import torch.distributed as dist
     store = dist.TCPStore("127.0.0.1", 0, EXCHANGE_W + 1, True,
                           wait_for_workers=False)
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [ctx.Process(target=_exchange_rank, args=(r, store.port, queue))
-             for r in range(EXCHANGE_W)]
-    for p in procs:
-        p.start()
     results = {}
-    try:
-        deadline = time.monotonic() + RANK_TIMEOUT
-        while len(results) < EXCHANGE_W:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise AssertionError(f"phase 6: ranks {sorted(results)} of "
-                                     f"{EXCHANGE_W} reported in "
-                                     f"{RANK_TIMEOUT} s")
-            try:
-                rank, out = queue.get(timeout=min(left, 10))
-            except Exception:       # queue.Empty: check the ranks are alive
-                dead = [r for r, p in enumerate(procs)
-                        if not p.is_alive() and r not in results]
-                if dead:
-                    raise AssertionError(f"phase 6: ranks {dead} died "
-                                         "without a result")
-                continue
-            if "error" in out:
-                raise AssertionError(f"phase 6 rank {rank}:\n{out['error']}")
-            results[rank] = out
-        for p in procs:
-            p.join(60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        paths = [os.path.join(tmpdir, f"rank{r}.json")
+                 for r in range(EXCHANGE_W)]
+        procs = []
+        try:
+            for r in range(EXCHANGE_W):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--exchange-rank", str(r), str(store.port), paths[r]]))
+            deadline = time.monotonic() + RANK_TIMEOUT
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break               # a rank failed: its error is read below
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 6: not every rank of "
+                                         f"{EXCHANGE_W} ended in "
+                                         f"{RANK_TIMEOUT} s")
+                time.sleep(1)
+            for r, path in enumerate(paths):
+                if os.path.exists(path):
+                    with open(path) as f:
+                        results[r] = json.load(f)
+                    if "error" in results[r]:
+                        raise AssertionError(
+                            f"phase 6 rank {r}:\n{results[r]['error']}")
+            for r, p in enumerate(procs):
+                if r not in results or p.poll() != 0:
+                    raise AssertionError(f"phase 6: rank {r} exited with "
+                                         f"{p.poll()}, result file "
+                                         f"{'written' if r in results else 'missing'}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+    del store
     for rank, out in sorted(results.items()):
-        for pre in ("", "defended_", "lazy_"):
+        for pre in ("", "defended_", "lazy_", "bf16_lazy_"):
             if not out[f"{pre}params_bitwise"]:
                 raise AssertionError(f"phase 6 rank {rank}: {pre}float and "
                                      f"{pre}packed wires gave different "
@@ -1483,20 +1660,25 @@ def exchange_on_card(torch):
             f"{out['lazy_float']}, packed {out['lazy_packed']} "
             f"({out['lazy_n_params']} params, peak "
             f"{out['lazy_float_peak'] / 1e9:.2f} GB float, "
-            f"{out['lazy_packed_peak'] / 1e9:.2f} GB packed); peak "
+            f"{out['lazy_packed_peak'] / 1e9:.2f} GB packed); the same "
+            f"with bf16 state, float {out['bf16_lazy_float']}, packed "
+            f"{out['bf16_lazy_packed']} ({out['bf16_lazy_n_params']} params, "
+            f"peak {out['bf16_lazy_float_peak'] / 1e9:.2f} GB float, "
+            f"{out['bf16_lazy_packed_peak'] / 1e9:.2f} GB packed); peak "
             f"{out['packed_peak'] / 1e9:.2f} GB; params bitwise equal "
             f"between the wires ({out['n_params']} params)")
     first = results[0]
     for rank, out in results.items():       # global sums: one value on all
         for wire in ("float", "packed", "defended_float", "defended_packed",
-                     "lazy_float", "lazy_packed"):
+                     "lazy_float", "lazy_packed", "bf16_lazy_float",
+                     "bf16_lazy_packed"):
             if [r[1:3] for r in out[wire]] != [r[1:3] for r in first[wire]]:
                 raise AssertionError(f"phase 6: rank {rank}'s uploads/bits "
                                      f"differ from rank 0's ({wire} wire)")
     for rank, out in results.items():
-        for label in ("packed", "defended_packed", "lazy_packed"):
-            n = (EXCHANGE_LAZY_STEPS if label.startswith("lazy")
-                 else SHARDED_STEPS)
+        for label in ("packed", "defended_packed", "lazy_packed",
+                      "bf16_lazy_packed"):
+            n = EXCHANGE_LAZY_STEPS if "lazy" in label else SHARDED_STEPS
             want = {"absmax": 2 * 12 * n, "quantize_pack_fused": 12 * n,
                     "quantize_codes_fused": 12 * n}
             got = out[f"{label}_launches"]
@@ -2241,6 +2423,7 @@ def main() -> int:
 
     log("phase 3: the slice on a small input, card vs CPU")
     small_slice_check(torch, ops)
+    nan_topk_check(torch, ops, ref)
     random_card_check(torch)
     stochastic_small_check(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -2289,15 +2472,20 @@ def main() -> int:
         "sharded_wk2_svrg": {"absmax": 24, "quantize_pack_fused": 12,
                              "quantize_codes_fused": 12},
         "sharded_ef_topk": {"sparse_quantize_pack": 1},
+        "sharded_b4_bf16": {"absmax": 24, "quantize_pack_fused": 12,
+                            "quantize_codes_fused": 12},
+        "sharded_float_bf16": {"absmax": 12, "quantize_pack_fused": 12},
     }
+    sharded = {}
     for method, want in per_step.items():
         log(f"  {method}: stablelm-1.6b at {sharded_cfg.n_layers} layers "
             f"(P={n_params(sharded_cfg)}), {SHARDED_ROWS}x{SEQ} tokens in "
             f"{SHARDED_MICROBATCH} microbatches, "
             f"{'float' if method in SHARDED_FLOAT else 'packed'} wire, "
             f"transport {workers.transport('cuda')}")
-        launches, recs, step_ms, peaks = run_sharded_path(
+        launches, recs, step_ms, peaks, final = run_sharded_path(
             torch, ops, workers, method, sharded_cfg, SHARDED_STEPS)
+        sharded[method] = (recs, max(peaks), final)
         for name in SHARDED_KERNELS:
             if launches[name] != SHARDED_STEPS * want.get(name, 0):
                 raise AssertionError(
@@ -2309,6 +2497,23 @@ def main() -> int:
         log(f"  ok {method}: launches {launches}; step ms "
             f"{[round(x, 1) for x in step_ms]}; max peak "
             f"{max(peaks) / 1e9:.2f} GB")
+    (rp, peak_p, fp), (rf, peak_f, ff) = (sharded["sharded_b4_bf16"],
+                                          sharded["sharded_float_bf16"])
+    if not all(torch.equal(a, b) for a, b in zip(fp, ff)):
+        raise AssertionError("state_bf16: the packed and float wires gave "
+                             "different parameters")
+    for a, b in zip(rp, rf):
+        if (a.loss.item(), a.uploads, a.bits.item()) != (
+                b.loss.item(), b.uploads, b.bits.item()):
+            raise AssertionError(f"state_bf16: packed step {a} vs float {b}")
+    del fp, ff
+    peak_f32 = sharded["sharded_b4"][1]
+    log(f"  ok state_bf16: packed and float wires give bitwise-equal "
+        f"parameters, losses {[round(m.loss.item(), 6) for m in rp]}, "
+        f"uploads {[m.uploads for m in rp]}; max peak packed "
+        f"{peak_p / 1e9:.2f} GB, float {peak_f / 1e9:.2f} GB, beside "
+        f"sharded_b4's {peak_f32 / 1e9:.2f} GB (float32 state): "
+        f"{(peak_f32 - peak_p) / 1e9:.2f} GB less on the packed wire")
     dist.destroy_process_group()
     del store
     gc.collect()
@@ -2323,12 +2528,16 @@ def main() -> int:
         k: ex["defended_packed_launches"].get(k, 0) for k in KERNELS}
     by_path["exchange_w4_wk2_svrg_packed"] = {
         k: ex["lazy_packed_launches"].get(k, 0) for k in KERNELS}
+    by_path["exchange_w4_bf16_wk2_svrg_packed"] = {
+        k: ex["bf16_lazy_packed_launches"].get(k, 0) for k in KERNELS}
     log(f"  ok: float and packed wires give bitwise-equal parameters on "
         f"every rank, without and with bernoulli participation and the "
         f"defense, and under lasg_wk2 + SVRG; uploads/bits per step "
         f"{[r[1:3] for r in ex['packed']]}, defended "
         f"{[r[1:3] for r in ex['defended_packed']]}, lasg_wk2 + SVRG "
-        f"{[r[1:3] for r in ex['lazy_packed']]}")
+        f"{[r[1:3] for r in ex['lazy_packed']]} ({EXCHANGE_LAZY_LAYERS} "
+        f"layer), with bf16 state {[r[1:3] for r in ex['bf16_lazy_packed']]} "
+        f"({EXCHANGE_BF16_LAYERS} layers)")
 
     log("phase 7: benchmarks_torch/bits_sweep.py")
     sweep_launches, _ = run_bits_sweep(torch, ops)
@@ -2469,4 +2678,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--exchange-rank"]:
+        rank, port, path = sys.argv[2:5]
+        sys.exit(_exchange_rank(int(rank), int(port), path))
     sys.exit(main())

@@ -4,7 +4,7 @@
         [--method laq|alaq|ef_topk|sharded_b4|sharded_adaptive|
                   sharded_wk2_svrg|sharded_ef_topk]
         [--arch stablelm-1.6b] [--layers N] [--rounds 2] [--top 20]
-        [--memory]
+        [--memory] [--state-bf16]
 
 Runs one of ``chip_smoke.py``'s paths (stablelm-1.6b at its published
 widths, float32 params, bfloat16 compute, W=4, 2x512 tokens per worker,
@@ -42,7 +42,8 @@ runs ``--rounds`` + 1 steps and prints no times: for every call of the
 step, of those stages but ``worker_update`` and of the calls inside it
 (the EF sum, the sparse roundtrip's flat copies, support, top-k,
 ``nonzero`` and scatter), the bytes allocated at entry and at exit and the peak inside
-the call, nested in call order.
+the call, nested in call order.  ``--state-bf16`` stores a sharded
+method's ``qhat`` and ``server_agg`` in bfloat16 (``state_bf16``).
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -157,7 +158,7 @@ def track_memory(step, steps):
     # worker_update (which frees the gradients handed to it) is not wrapped
     targets = [(train_mod, k) for k in (
         "accumulate_loss_grads", "apply_svrg_streaming", "stale_side_grads",
-        "_packed_aggregate", "_float_aggregate")]
+        "_packed_aggregate", "_float_aggregate", "_server_update")]
     targets += [(strategy_mod, "fma_f32"), (strategy_mod, "sparse_roundtrip"),
                 (wire_mod, "_flat"), (wire_mod, "select_support"),
                 (wire_mod, "scatter_selection"),
@@ -216,7 +217,8 @@ def profile_sharded(args):
 
     cfg = get_config("stablelm-1.6b")       # bfloat16 params and compute
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
-    print(f"{args.method}, {cfg.n_layers} layers, one NCCL worker")
+    print(f"{args.method}, {cfg.n_layers} layers, one NCCL worker"
+          + (", bfloat16 state" if args.state_bf16 else ""))
     store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
     workers = init_workers("nccl", 1, 0, store)
     corpus = lm_worker_corpus(0, 1, N_LOCAL, SEQ, cfg.vocab, device="cuda")
@@ -224,7 +226,8 @@ def profile_sharded(args):
     fields, wire = SHARDED[args.method]
     scfg = StrategyConfig(kind="laq", **fields,
                           per_leaf_radius=True, wire_backend="fused",
-                          criterion=CriterionConfig(D=10, xi=0.08, t_bar=100))
+                          criterion=CriterionConfig(D=10, xi=0.08, t_bar=100),
+                          state_bf16=args.state_bf16)
     timer = StageTimer()
     opt = sgd()
     opt = Optimizer(opt.init, timer.wrap("optimizer update", opt.update))
@@ -283,7 +286,12 @@ def main():
     ap.add_argument("--memory", action="store_true",
                     help="sharded methods: the memory of each call, no "
                     "times")
+    ap.add_argument("--state-bf16", action="store_true",
+                    help="sharded methods: qhat and server_agg in bfloat16")
     args = ap.parse_args()
+    if args.state_bf16 and args.method not in SHARDED:
+        raise SystemExit("--state-bf16 runs in the sharded step only: "
+                         "RoundEngine refuses it")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -11,9 +11,10 @@ uses them.
 
 Bit-identity with the reference under jit:
 
-* top-k keeps ``jax.lax.top_k``'s support: ties at the k-th largest |d|
-  go to the lowest index.  ``torch.topk`` promises no order among ties, so
-  only its values are used, to find the k-th largest magnitude.
+* top-k keeps ``jax.lax.top_k``'s support: NaN ranks above +inf, and
+  ties at the k-th largest |d| (NaNs among them) go to the lowest index.
+  ``torch.topk`` promises no order among ties, so only its values are
+  used, on the non-NaN magnitudes, to find the k-th largest.
 * XLA rewrites ``(hi - lo) / L`` (a constant divisor) as ``(hi - lo) *
   f32(1 / L)`` and contracts ``lo + mag * step`` into one FMA; the grid
   here does the same (:func:`repro_torch.core.quantize.fma_f32`).
@@ -81,10 +82,20 @@ class SparseSelection(NamedTuple):
 
 
 def _topk_support(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """Ascending indices of the k largest |flat|, ties to the lowest index.
-    The survivors are counted by ``nonzero``: a sum over the 1-byte mask
-    would first cast it to int64, 8 bytes a coordinate."""
+    """Ascending indices of the k largest |flat| in ``jax.lax.top_k``'s
+    order: NaN above every number, and ties (NaNs among them) to the
+    lowest index.  So the NaN coordinates go first, lowest index first, and
+    the places left are filled from the rest.  The survivors are counted
+    by ``nonzero``: a sum over the 1-byte mask would first cast it to
+    int64, 8 bytes a coordinate."""
     a = flat.abs()
+    nan_idx = torch.nonzero(torch.isnan(a)).reshape(-1)
+    n_nan = nan_idx.numel()
+    if n_nan >= k:
+        return nan_idx[:k]
+    if n_nan:
+        a[nan_idx] = -1.0       # below every |d|: never selected below
+        k -= n_nan
     kth = torch.topk(a, k, sorted=False).values.min()
     idx = torch.nonzero(a >= kth).reshape(-1)
     extra = idx.numel() - k
@@ -93,9 +104,8 @@ def _topk_support(flat: torch.Tensor, k: int) -> torch.Tensor:
         a[torch.nonzero(a == kth).reshape(-1)[-extra:]] = -1.0
         idx = torch.nonzero(a >= kth).reshape(-1)
     del a
-    if idx.numel() != k:
-        raise ValueError(f"top-k found {idx.numel()} of {k} survivors: the "
-                         "innovation holds NaN")
+    if n_nan:
+        idx = torch.sort(torch.cat([nan_idx, idx])).values
     return idx
 
 
@@ -158,7 +168,8 @@ def inv_levels(bits: int) -> float:
 def reference_sparse_quantize(vals, lo, hi, bits: int):
     """``(codes, deq)`` on the survivors: ``codes = (neg << (b-1)) | mag``
     with ``mag = clip(floor((|v| - lo) / step + 1/2), 0, L)`` (0 where
-    ``step <= 0``) and ``deq = +-fma(mag, step, lo)``."""
+    ``step <= 0``, and where it is NaN) and ``deq = +-fma(mag, step,
+    lo)``."""
     L = 2 ** (bits - 1) - 1
     v = vals.to(F32)
     a = v.abs()
@@ -167,7 +178,9 @@ def reference_sparse_quantize(vals, lo, hi, bits: int):
     live = step > 0
     safe = torch.where(live, step, torch.ones_like(step))
     mag = torch.floor((a - lo) / safe + 0.5).clamp(0, L)
-    mag = torch.where(live, mag, torch.zeros_like(mag))
+    # a NaN mag (an infinite step, or a NaN survivor) is 0, as XLA's
+    # float-to-uint8 convert writes it, and deq reads the integer mag
+    mag = torch.where(live & ~torch.isnan(mag), mag, torch.zeros_like(mag))
     codes = (neg.to(torch.uint8) << (bits - 1)) | mag.to(torch.uint8)
     x = fma_f32(mag, step, lo)
     return codes, torch.where(neg, -x, x)

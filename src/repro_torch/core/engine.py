@@ -36,6 +36,13 @@ enters ``grad_norm_sq`` first), wire bit flips and the defense inside
 robust aggregator holds the W committed deltas in place of the running
 sum.
 
+bfloat16 state (``StrategyConfig.state_bf16``) is refused here, as the
+reference's engine cannot run it: its ``aggregate`` adds a float32 delta
+sum to the bfloat16 ``server_agg`` (``repro/core/strategy.py:647-649``),
+so the round's ``server_agg`` comes out float32, and the ``lax.scan`` of
+``RoundEngine.run`` (``repro/core/engine.py:781``) rejects a carry whose
+dtype changes.  The sharded step (``launch/train.py``) runs it.
+
 Gradient sources: :class:`FullBatchSource` (paper Table 2),
 :class:`MinibatchSource` (paper Table 3) and :class:`AccumulatingSource`
 (the LM worker, stochastic or ``deterministic=True``).  Their minibatches
@@ -596,6 +603,13 @@ class RoundEngine:
                              "baselines carry none of it -- run them with "
                              "faults off")
         check_supported(cfg)
+        if cfg.state_bf16:
+            raise ValueError(
+                "state_bf16 runs in the sharded step (launch/train.py), not "
+                "in RoundEngine: the reference's engine cannot run it -- its "
+                "aggregate returns a float32 server_agg from the bfloat16 "
+                "one, and the lax.scan of RoundEngine.run rejects the "
+                "carry's dtype change")
         self.source = source
         self.cfg = cfg
         self.alpha = alpha

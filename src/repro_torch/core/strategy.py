@@ -28,9 +28,14 @@ rejected upload is masked like a skip and still pays its bits).
 stochastic gradients with (``grad_mode="svrg"``), ``CommState.defense``
 the defense's per-worker state, and :func:`aggregate` combines the
 committed deltas by the paper's sum or a robust aggregator
-(:func:`repro_torch.core.defense.robust_aggregate`).  bfloat16 state
-(``state_bf16``) is not ported and raises ``NotImplementedError`` from
-:func:`check_supported`, naming its ROADMAP item.
+(:func:`repro_torch.core.defense.robust_aggregate`).
+
+bfloat16 state (``state_bf16``): ``qhat`` and ``server_agg`` are stored in
+bfloat16 and read as float32 (the wire kernels get each leaf cast,
+``kernels/ops.py``); a committed ``q_new`` is rounded to bfloat16 (to
+nearest even, as ``astype`` rounds) only when it is stored.  The sharded
+step (``launch/train.py``) runs it.  ``RoundEngine`` refuses it, as the
+reference's engine cannot run it (``core/engine.py``).
 
 An unreachable worker still computes its gradient and its wire, as in the
 reference (whose vmap runs every lane): its radius enters
@@ -44,7 +49,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .adaptive import BitSchedule, EtaSchedule, select_bits
 from .compressors import (COMPRESSORS, ErrorState, compressor_keys,
                           init_error_state, static_k)
@@ -74,7 +79,8 @@ class StrategyConfig(NamedTuple):
     criterion: CriterionConfig = CriterionConfig()
     per_leaf_radius: bool = False   # paper: one global R; True = bucketed
     first_round_upload: bool = True  # init clocks at t_bar: round 1 is dense
-    state_bf16: bool = False        # qhat/server_agg in bf16 (not ported)
+    state_bf16: bool = False        # qhat/server_agg stored in bf16 (the
+                                    # sharded step; RoundEngine refuses it)
     bit_schedule: Optional[BitSchedule] = None  # adaptive widths (A-LAQ)
     wire_backend: str = "reference"  # "reference" | "fused" (core/wire.py)
     lazy_rule: str = "laq7a"        # skip rule, one of LAZY_RULES
@@ -164,10 +170,6 @@ def check_supported(cfg: StrategyConfig):
         raise ValueError("wire-code bit-flips model the packed fixed-bit "
                          "payload: they need a fixed-bit quantized kind (qgd "
                          "/ laq) without the sparse compressor pipeline")
-    if cfg.state_bf16:
-        raise NotImplementedError(
-            f"{cfg} switches on a feature that is not ported yet "
-            f"(ROADMAP.md queue 1: Memory: state_bf16)")
 
 
 class SvrgState(NamedTuple):
@@ -198,8 +200,9 @@ class CommState(NamedTuple):
     """LAQ state.  ``qhat`` (and ``error.residual`` under error feedback,
     the LASG pytrees of ``lazy`` and the SVRG anchors of ``svrg``) is a
     list of W per-worker pytrees on the parameters' device, ``server_agg``
-    one pytree there; the small bookkeeping lives on the host as
-    float32/int CPU tensors and ints.
+    one pytree there, both float32, or bfloat16 under ``state_bf16``; the
+    small bookkeeping lives on the host as float32/int CPU tensors and
+    ints.
 
     :func:`aggregate` updates the per-worker lists and ``server_agg`` in
     place to hold memory at one copy each.
@@ -235,17 +238,21 @@ def init_comm_state(grad_template, n_workers: int,
     """Zero state; ``grad_template`` gives one worker's leaf shapes and the
     device the per-worker buffers live on."""
     check_supported(cfg)
+    sdtype = torch.bfloat16 if cfg.state_bf16 else F32
 
     def zeros(l):
         return torch.zeros(l.shape, dtype=F32, device=l.device)
+
+    def zeros_s(l):
+        return torch.zeros(l.shape, dtype=sdtype, device=l.device)
 
     # clocks start at t_bar when first_round_upload: criterion (7b) then
     # forces a dense first round, bootstrapping qhat / the server aggregate
     clock0 = cfg.criterion.t_bar if (cfg.lazy and cfg.first_round_upload) else 0
     lazy_rule = cfg.lazy_rule if cfg.lazy else "laq7a"
     return CommState(
-        qhat=[tree_map(zeros, grad_template) for _ in range(n_workers)],
-        server_agg=tree_map(zeros, grad_template),
+        qhat=[tree_map(zeros_s, grad_template) for _ in range(n_workers)],
+        server_agg=tree_map(zeros_s, grad_template),
         eps_hat_sq=torch.zeros(n_workers, dtype=F32),
         clocks=torch.full((n_workers,), clock0, dtype=torch.int32),
         bits_spent=torch.zeros(n_workers, dtype=F32),
@@ -398,7 +405,7 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         clip = cfg.defense.clip_mult > 0.0
         q_new = tree_map(lambda g: g.to(F32).clone() if clip else g.to(F32),
                          grad_m)
-        delta = tree_map(lambda g, q: g - q, q_new, qhat_m)
+        delta = tree_map(lambda g, q: g - q.to(F32), q_new, qhat_m)
         R = torch.zeros((), dtype=F32)
         err_sq = torch.zeros((), dtype=F32)
         innovation_sq = tree_sq_norm(delta)
@@ -476,6 +483,13 @@ def worker_update(grad_m, qhat_m, eps_hat_sq_m, clock_m, theta_hist, alpha,
         # e_new = g_eff - q_new: the mass this round's compress dropped
         error_new = tree_map(lambda g, qn: g.sub_(qn), g_eff, q_new)
     del g_eff
+    if committed:
+        # the commit rounds q_new into qhat's dtype (to nearest even, as
+        # the reference's qn.astype(qh.dtype)): a no-op for float32 state
+        q_leaves, treedef = tree_flatten(q_new)
+        del q_new
+        q_new = tree_unflatten(treedef, [
+            q_leaves.pop(0).to(qh.dtype) for qh in tree_leaves(qhat_m)])
     return WorkerOut(
         delta_masked=delta if committed else None,
         qhat_new=q_new if committed else qhat_m,

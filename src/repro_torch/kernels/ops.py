@@ -27,7 +27,12 @@ PACKED_BITS = (1, 2, 4, 8)
 
 
 def _flat_pair(grad: torch.Tensor, qhat: torch.Tensor):
-    """Validate one leaf's operands; returns them as flat vectors."""
+    """Validate one leaf's operands; returns them as flat float32 vectors.
+    A bfloat16 ``qhat`` (``StrategyConfig.state_bf16``) is cast to float32
+    here, one leaf at a time, as the reference's ``_pad_pair`` casts it:
+    the kernels read ``const float* qh``."""
+    if qhat.dtype == torch.bfloat16:
+        qhat = qhat.to(torch.float32)
     for name, t in (("grad", grad), ("qhat", qhat)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

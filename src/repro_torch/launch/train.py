@@ -52,8 +52,11 @@ the engine's analytic bit accounting (each worker's rand-k key is its
 slot of the step's keys).  What the reference refuses (``delay`` /
 ``markov`` participation, fault injection, a robust aggregator, the clip
 on the packed wire, a compressor or error feedback on the packed wire)
-raises ``ValueError`` with its reason; pods, a model axis > 1 and
-``state_bf16`` raise ``NotImplementedError`` naming their ROADMAP item.
+raises ``ValueError`` with its reason; pods and a model axis > 1 raise
+``NotImplementedError`` naming their ROADMAP item.  ``state_bf16`` on both
+wires: ``qhat`` and ``server_agg`` are stored in bfloat16, read as
+float32, and the optimizer reads the float32 ``agg`` of the server
+recursion (:func:`_server_update`).
 The reference's ``train_state_specs``, ``batch_specs`` and
 ``_match_param_spec`` place arrays on a TPU mesh (PartitionSpecs) and have
 no counterpart here.
@@ -234,6 +237,32 @@ def _float_aggregate(delta_masked, template, workers: WorkerGroup):
     return tree_unflatten(treedef, out)
 
 
+def _server_update(optimizer: Optimizer, server_agg, handed: list,
+                   opt_state, params, lr):
+    """The server recursion ``agg^k = agg^{k-1} + sum_m delta_m`` and the
+    update; returns ``(new_params, new_opt_state, ||agg||^2)``.
+
+    The optimizer and ``||agg||^2`` read a float32 ``agg``.  Float32 state
+    is updated in place and is that ``agg``.  Under ``state_bf16`` (the
+    reference's ``agg = server_agg.astype(f32) + agg_delta``, ``agg_store =
+    agg.astype(bf16)``) the float32 ``agg`` is formed leaf by leaf in the
+    buffers of ``sum_m delta_m``, and only the stored copy is rounded, into
+    ``server_agg``'s: rounding before the update would be another
+    algorithm.  ``handed`` holds ``sum_m delta_m``, the only reference to
+    it, which is consumed."""
+    s_leaves, treedef = tree_flatten(server_agg)
+    agg = []
+    for s, d in zip(s_leaves, tree_leaves(handed.pop())):
+        if s.dtype == F32:
+            agg.append(s.add_(d))
+        else:
+            agg.append(d.add_(s))   # f32(stored) + delta: IEEE add commutes
+            s.copy_(d)              # the stored copy, rounded to nearest even
+    agg = tree_unflatten(treedef, agg)
+    new_params, new_opt = optimizer.update(agg, opt_state, params, lr)
+    return new_params, new_opt, tree_sq_norm(agg)
+
+
 def _check_step_supported(strategy: StrategyConfig, wire: str, worker_axes,
                           hierarchical: bool, model_parallel: int):
     if wire not in ("float", "packed"):
@@ -393,13 +422,10 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
                 with_q_new=False)
             del grads
 
-        # the server recursion agg^k = agg^{k-1} + sum_m delta_m, in place
-        agg = comm.server_agg
-        for a, d in zip(tree_leaves(agg), tree_leaves(agg_delta)):
-            a.add_(d)
+        handed = [agg_delta]
         del agg_delta
-        new_params, new_opt = optimizer.update(agg, state.opt_state, params,
-                                               lr_k)
+        new_params, new_opt, grad_sq = _server_update(
+            optimizer, comm.server_agg, handed, state.opt_state, params, lr_k)
         dtheta_sq = tree_sq_norm_diff(new_params, params).cpu()
         del params
 
@@ -423,7 +449,7 @@ def make_train_step(cfg: ModelConfig, workers: WorkerGroup,
             defense=DefenseState(*(None if x is None else x.reshape(1)
                                    for x in wu.defense_new)))
         metrics = StepMetrics(loss=loss_sum, uploads=uploads, bits=bits_sum,
-                              grad_sq=tree_sq_norm(agg).cpu())
+                              grad_sq=grad_sq.cpu())
         return TrainState(new_params, new_opt, new_comm,
                           state.step + 1), metrics
 
@@ -434,10 +460,11 @@ def init_train_state(params, workers: WorkerGroup, strategy: StrategyConfig,
                      optimizer: Optimizer) -> TrainState:
     """This worker's initial state around the parameters the caller gives
     (the same on every worker; :mod:`repro_torch.convert` carries the
-    reference's over).  ``qhat`` and ``server_agg`` are float32 zeros on
-    the parameters' device; ``theta_last`` (``lasg_wk2``, ``lasg_ps``)
-    references the float32 parameters, and the SVRG anchor is a float32
-    copy of them, since the step refreshes it in place."""
+    reference's over).  ``qhat`` and ``server_agg`` are zeros on the
+    parameters' device, float32, or bfloat16 under ``state_bf16`` (the
+    reference's ``init_comm_state``); ``theta_last`` (``lasg_wk2``,
+    ``lasg_ps``) references the float32 parameters, and the SVRG anchor is
+    a float32 copy of them, since the step refreshes it in place."""
     comm = init_comm_state(params, 1, strategy)
     if strategy.variance_reduced:
         comm = comm._replace(svrg=SvrgState(

@@ -188,3 +188,68 @@ def test_carry_resumes_across_the_packages(name, direction, tmp_path):
         np.testing.assert_allclose(np.asarray(second.params[key]),
                                    np.asarray(want.params[key]), rtol=tol,
                                    atol=tol, err_msg=key)
+
+
+@pytest.mark.parametrize("direction", ("jax_to_port", "port_to_jax"))
+def test_bf16_comm_state_crosses_the_packages(direction, tmp_path):
+    """A ``state_bf16`` comm state (the sharded step's: W=4 workers' bf16
+    ``qhat`` and the bf16 ``server_agg``, a float32 error-feedback
+    residual beside them) saved by one package loads in the other, with
+    its bf16 leaves under ``BF16::`` keys, bf16 again after the load and
+    bitwise equal: +-0, +-inf, subnormals and ordinary values, and NaN
+    where NaN was (torch and XLA write other NaN payloads)."""
+    import jax.numpy as jnp
+    from repro.core.strategy import init_comm_state as j_init
+    from repro_torch.core.strategy import init_comm_state as t_init
+    W, kw = 4, dict(kind="laq", bits=4, state_bf16=True,
+                    compressor="topk", error_feedback=True)
+    rng = np.random.default_rng(21)
+    vals = rng.standard_normal((W + 2, C.P)).astype(np.float32)
+    vals[:, :6] = np.array([0x0, 0x80000000, 0x7F800000, 0xFF800000,
+                            0x7FC00000, 0x00010000],
+                           np.uint32).view(np.float32)
+    q16 = np.asarray(jnp.asarray(vals).astype(jnp.bfloat16))
+    bits16 = q16.view(np.uint16)
+    jc = j_init({"x": jnp.zeros(C.P, jnp.float32)}, W, C.strategy(False, **kw))
+    tc = t_init({"x": torch.zeros(C.P)}, W, C.strategy(True, **kw))
+    t16 = lambda a: torch.from_numpy(a.view(np.int16).copy()).view(
+        torch.bfloat16)
+    path = str(tmp_path / "ck.npz")
+    if direction == "port_to_jax":
+        tc.qhat[:] = [{"x": t16(q16[m])} for m in range(W)]
+        tc.server_agg["x"] = t16(q16[W])
+        tc.error.residual[1]["x"] = torch.from_numpy(vals[W + 1].copy())
+        save_checkpoint(path, tc, 5)
+        back, step = jload(path, jc)
+        qhat, agg = np.asarray(back.qhat["x"]), np.asarray(back.server_agg["x"])
+        resid = np.asarray(back.error.residual["x"])[1]
+    else:
+        jc = jc._replace(
+            qhat={"x": jnp.asarray(q16[:W])},
+            server_agg={"x": jnp.asarray(q16[W])},
+            error=jc.error._replace(residual={"x": jnp.asarray(
+                np.stack([np.zeros(C.P, np.float32), vals[W + 1]]
+                         + [np.zeros(C.P, np.float32)] * (W - 2)))}))
+        jsave(path, jc, 5)
+        back, step = load_checkpoint(path, tc)
+        assert all(q["x"].dtype == torch.bfloat16 for q in back.qhat)
+        assert back.server_agg["x"].dtype == torch.bfloat16
+        as16 = lambda t: t.view(torch.int16).numpy().view(np.uint16)
+        qhat = np.stack([as16(q["x"]) for q in back.qhat])
+        agg = as16(back.server_agg["x"])
+        resid = back.error.residual[1]["x"].numpy()
+    with np.load(path) as z:
+        assert {"BF16::qhat/x", "BF16::server_agg/x"} <= set(z.files)
+        assert "error/residual/x" in z.files
+    assert step == 5
+    if direction == "port_to_jax":
+        assert qhat.dtype == agg.dtype == jnp.bfloat16
+        qhat, agg = qhat.view(np.uint16), agg.view(np.uint16)
+    # a NaN stays NaN; its payload is the converting library's
+    nan = np.isnan(q16.astype(np.float32))
+    for got, want, where in ((qhat, bits16[:W], nan[:W]),
+                             (agg, bits16[W], nan[W])):
+        np.testing.assert_array_equal(got[~where], want[~where])
+        assert ((got[where] & 0x7FFF) > 0x7F80).all()
+    np.testing.assert_array_equal(resid.view(np.uint32),
+                                  vals[W + 1].view(np.uint32))

@@ -1,8 +1,8 @@
 """The port's sparse wire (``repro_torch.core.compressors`` and
 ``wire.sparse_roundtrip``) against the reference's, run under ``jax.jit``.
 
-The top-k support is identical to ``jax.lax.top_k``'s, ties to the lowest
-index, indices ascending; so is the rand-k support, drawn with
+The top-k support is identical to ``jax.lax.top_k``'s, NaN first and
+ties to the lowest index, indices ascending; so is the rand-k support, drawn with
 ``repro_torch.random`` from the same key.  Codes, deq, lo/hi (b > 1), q_new, delta and the
 payload are bitwise; the two moments agree to rtol 1e-5 (float32 reduction
 order).  At b = 1 the grid endpoints are a mean, which torch reduces in
@@ -58,12 +58,60 @@ def test_topk_support_breaks_ties_like_jax(k):
                                               == kth).sum()
 
 
+def _planted_nan(k):
+    """The tie-heavy magnitudes with NaN (both signs) and +-inf planted:
+    two NaNs at k = 1 (more than the places), 5 NaNs and 3 infinities
+    otherwise."""
+    flat = _planted_ties(k)
+    nans = [17, 3] if k == 1 else [17, 3, 4001, 2500, 4998]
+    for i, j in enumerate(nans):
+        flat[j] = np.float32(np.nan) if i % 2 else -np.float32(np.nan)
+    if k > 1:
+        flat[[9, 1200, 4990]] = [np.inf, -np.inf, np.inf]
+    return flat
+
+
 @pytest.mark.parametrize("k", [1, 700, 4999])
 def test_topk_support_refuses_a_nan_innovation(k):
-    flat = torch.from_numpy(_planted_ties(k))
-    flat[17] = float("nan")
-    with pytest.raises(ValueError, match="holds NaN"):
-        tcomp.select_support("topk", flat, k)
+    """A NaN innovation is not refused: the support is the reference's,
+    NaN first (lowest index first, as ``jax.lax.top_k`` ranks NaN above
+    +inf), then the largest |d| with ties to the lowest index."""
+    flat = _planted_nan(k)
+    got = tcomp.select_support("topk", torch.from_numpy(flat), k)
+    want = jax.jit(lambda x: jcomp.select_support("topk", x, k))(flat)
+    _eq(got.idx.numpy(), want.idx)
+    _eq(np.isnan(got.vals.numpy()), np.isnan(want.vals))
+    ok = ~np.isnan(np.asarray(want.vals))
+    _eq(got.vals.numpy()[ok], np.asarray(want.vals)[ok])
+    assert np.isnan(got.vals.numpy()).sum() == min(k, 2 if k == 1 else 5)
+
+
+@pytest.mark.parametrize("bits", (1, 2, 4, 8))
+@pytest.mark.parametrize("vals", (
+    [1.0, -2.0, np.nan, 0.5], [1.0, -2.0, np.inf, 0.5],
+    [1.0, -np.inf, np.inf, -0.5], [np.nan, -np.nan], [-0.0, 0.0, 3.0]),
+    ids=["nan", "inf", "both_infs", "all_nan", "zeros"])
+def test_sparse_grid_and_codes_on_nan_and_inf_survivors(bits, vals):
+    """The grid on survivors that hold NaN or +-inf, where the step is NaN
+    or infinite: the jitted reference's mag is 0 there (XLA converts a NaN
+    to the integer 0), so the codes carry only the sign bit and deq is
+    NaN; both packages agree on codes bitwise, on lo/hi and deq bitwise
+    or NaN alike."""
+    v = np.array(vals, np.float32)
+    lo, hi = tcomp.sparse_grid(torch.from_numpy(v), bits)
+    codes, deq = tcomp.reference_sparse_quantize(torch.from_numpy(v), lo,
+                                                 hi, bits)
+
+    def ref(x):
+        a, b = jcomp.sparse_grid(x, bits)
+        return (a, b) + jcomp.reference_sparse_quantize(x, a, b, bits)
+
+    wlo, whi, wcodes, wdeq = jax.jit(ref)(v)
+    _eq(codes.numpy(), wcodes)
+    for got, want in ((lo, wlo), (hi, whi), (deq, wdeq)):
+        got, want = got.numpy(), np.asarray(want)
+        _eq(np.isnan(got), np.isnan(want))
+        _eq(got[~np.isnan(want)], want[~np.isnan(want)])
 
 
 @pytest.mark.parametrize("bits", (1, 2, 4, 8))
@@ -132,6 +180,30 @@ def test_sparse_roundtrip_matches_reference(backend, frac, bits):
     # the inputs are left as they were (the roundtrip works on flat copies)
     for k_, v in g.items():
         _eq(tg[k_].numpy(), v)
+
+
+@pytest.mark.parametrize("backend", ("reference", "fused"))
+def test_sparse_roundtrip_reads_a_bf16_qhat_as_float32(backend):
+    """Under ``state_bf16`` ``qhat`` is bfloat16: the roundtrip's flat
+    copy of it is float32, so ``q_new = f32(qhat) + delta`` is not
+    rounded into bf16; q_new, delta, the support and the codes equal the
+    jitted reference's bit for bit."""
+    g, q, tg, _ = _trees(5)
+    q16 = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in q.items()}
+    tq16 = {k: torch.from_numpy(np.asarray(v).view(np.int16).copy()).view(
+        torch.bfloat16) for k, v in q16.items()}
+    p = sum(int(np.prod(s)) for s in SHAPES.values())
+    k = jcomp.static_k(0.25, p)
+    want = jax.jit(lambda a, b: jwire.sparse_roundtrip(
+        jwire.get_backend(backend), a, b, 4, k, "topk"))(g, q16)
+    got = twire.sparse_roundtrip(backend, tg, tq16, 4, k, "topk")
+    for field in ("q_new", "delta"):
+        for w, t in zip(jax.tree.leaves(getattr(want, field)),
+                        tree_leaves(getattr(got, field))):
+            assert t.dtype == torch.float32 and w.dtype == jnp.float32
+            _eq(t.numpy(), w)
+    for field in ("idx", "codes"):
+        _eq(getattr(got, field).numpy(), getattr(want, field))
 
 
 def test_randk_names_rng_parity():

@@ -16,7 +16,9 @@ on a rounding boundary by one grid step ``2 tau R``, and the parameters
 then move by ``alpha`` times that step each round until that worker
 uploads again.  In ``inf_validate`` a code of an honest worker (R = 1.4e-3)
 moves in round 36, and by round 40 one coordinate of 20 is 2.9e-4 off
-(every count still exact).  The three watchdog
+(every count still exact).  A NaN innovation under top-k and rand-k
+(with error feedback, defended and not, full-batch and minibatch) gives
+the reference's counts, rejects and NaN losses.  The three watchdog
 scenarios of ``test_faults.py`` give equal logs.
 """
 import numpy as np
@@ -442,6 +444,49 @@ def test_stochastic_fault_runs_match_reference_engine(name):
         np.testing.assert_array_equal(C.rejects(tc), rj)
 
 
+# A NaN innovation under the sparse compressors: top-k selects the NaN
+# coordinates first (``jax.lax.top_k`` ranks NaN above +inf), the grid's
+# endpoints are NaN and so is every survivor's deq.  (name -> (kw, source,
+# rounds, the reference's rejects after the last round or None, whether
+# the reference's last loss is NaN)); the rejects and the NaN-ness are
+# asserted, not only compared, so that a change of the reference shows.
+NAN_SPARSE = dict(kind="laq", bits=4, compressor="topk", compressor_k=0.25,
+                  error_feedback=True,
+                  faults=dict(corrupt_p=0.3, corrupt_kind="nan", fault_seed=1))
+NAN_SPARSE_RUNS = {
+    "topk_validate": (dict(NAN_SPARSE, defense=dict(validate=True)),
+                      "quadratic", 6, [3, 2, 3, 2, 3, 2, 2, 1, 2, 0], False),
+    "topk_undefended": (NAN_SPARSE, "quadratic", 6, None, True),
+    "topk_validate_minibatch": (dict(NAN_SPARSE, defense=dict(validate=True)),
+                                "regression", 4, [2, 2, 1, 1, 1, 1], False),
+    "randk_validate": (dict(NAN_SPARSE, compressor="randk",
+                            defense=dict(validate=True)),
+                       "quadratic", 6, None, False),
+}
+
+
+@pytest.mark.parametrize("name", NAN_SPARSE_RUNS)
+def test_sparse_nan_innovation_matches_reference_engine(name):
+    """Uploads, bits and rejects exact, the loss NaN exactly where the
+    reference's is, and the rest as in the fault runs above."""
+    kw, source, rounds, want_rejects, nan_loss = NAN_SPARSE_RUNS[name]
+    engines = (C.quadratic_engines(kw) if source == "quadratic"
+               else C.regression_engines(kw, batch=4))
+    (jc, want), (tc, got) = C.run_both(engines, rounds)
+    _eq = np.testing.assert_array_equal
+    _eq(np.isnan(got.loss.numpy()), np.isnan(np.asarray(want.loss)))
+    assert bool(np.isnan(np.asarray(want.loss)[-1])) == nan_loss
+    C.assert_runs_match(want, got, rtol=1e-4, atol=1e-4, param_atol=1e-3)
+    rj = C.rejects(jc)
+    if rj is None:
+        assert C.rejects(tc) is None
+    else:
+        _eq(C.rejects(tc), rj)
+        assert rj.sum() > 0
+    if want_rejects is not None:
+        _eq(rj, want_rejects)
+
+
 def test_rejected_upload_is_masked_like_a_skip_but_pays_bits():
     """Round by round: a rejected worker's qhat, eps_hat and clock are as
     after a skip, its bits are paid, and the server aggregate stays
@@ -563,6 +608,10 @@ def test_random_uniform_threshold_matches_weak_typed_compare():
 
 
 def test_check_supported_gates_only_bf16_state_of_participation_and_robustness():
+    """``check_supported`` takes participation, the robustness layer and
+    bfloat16 state; ``RoundEngine`` refuses bfloat16 state, which the
+    reference's engine cannot run
+    (``test_reference_engine_refuses_bf16_state``)."""
     from repro_torch.core.strategy import check_supported
     for kw in (dict(participation="markov", participation_p=0.5),
                dict(participation="delay", max_delay=3),
@@ -570,7 +619,24 @@ def test_check_supported_gates_only_bf16_state_of_participation_and_robustness()
                                 crash_p=0.1)),
                dict(defense=dict(validate=True, gate_mult=2.0,
                                  clip_mult=3.0, reconcile_crashes=False)),
-               dict(aggregator="median"), dict(aggregator="trimmed_mean")):
+               dict(aggregator="median"), dict(aggregator="trimmed_mean"),
+               dict(state_bf16=True)):
         check_supported(C.strategy(True, kind="laq", bits=4, **kw))
-    with pytest.raises(NotImplementedError, match="Memory: state_bf16"):
-        check_supported(C.strategy(True, state_bf16=True))
+    with pytest.raises(ValueError, match="state_bf16 runs in the sharded"):
+        C.quadratic_engines(dict(kind="laq", bits=4, state_bf16=True))
+
+
+@pytest.mark.parametrize("backend", ("reference", "fused"))
+@pytest.mark.parametrize("kind", ("laq", "qgd"))
+def test_reference_engine_refuses_bf16_state(kind, backend):
+    """The reason of the port's refusal: the reference's ``aggregate``
+    adds the float32 delta sum to the bfloat16 ``server_agg``, and the
+    ``lax.scan`` of ``RoundEngine.run`` rejects the carry whose dtype
+    changed."""
+    from repro.core.engine import FullBatchSource, RoundEngine
+    strat = C.strategy(False, kind=kind, bits=4, wire_backend=backend,
+                       state_bf16=True)
+    engine = RoundEngine(FullBatchSource(C.j_quadratic, C.quadratic_data()),
+                         strat, alpha=0.3)
+    with pytest.raises(TypeError, match="server_agg.*bfloat16.*float32"):
+        engine.run({"x": np.zeros(C.P, np.float32)}, 2)

@@ -23,7 +23,10 @@ rules lasg_wk, lasg_wk2 and lasg_ps and SVRG's streaming anchor
 wires (the anchor's and the stale iterate's backprops through the same
 microbatch fold), and EF-top-k, rand-k and EF-rand-k on the float wire
 (``torch_dist_cases.TRAIN_RULES``, each with a criterion that splits the
-workers); and both wires
+workers); five of these again with ``qhat`` and ``server_agg`` stored in
+bfloat16 (``torch_dist_cases.TRAIN_BF16``: the float, packed and adaptive
+wires, wk2 + SVRG packed and EF-top-k, whose dtypes are checked after
+every step, on every rank and in the reference); and both wires
 with bernoulli participation (p=0.5) and the defense's validation and
 norm gate, where each worker reads its slot of the round's cohort and an
 absent or rejected worker is masked off the wire like a skip.  All run
@@ -82,7 +85,8 @@ from repro.optim import sgd
 mesh = Mesh(np.array(jax.devices()).reshape(C.TRAIN_W, 1), ("data", "model"))
 out = {}
 for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
-    arch = C.TRAIN_ARCHS.get(config, "stablelm-1.6b")
+    twin = C.train_twin(config)
+    arch = C.TRAIN_ARCHS.get(twin, "stablelm-1.6b")
     cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype=jnp.float32,
                               compute_dtype=jnp.float32)
@@ -95,15 +99,15 @@ for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
                            NamedSharding(mesh, P("data", None)))
     sched = (BitSchedule(kind="radius", grid=C.GRID,
                          thresholds=C.TRAIN_THRESHOLDS)
-             if config == "packed_adaptive" else None)
+             if twin == "packed_adaptive" else None)
     extra = (dict(C.TRAIN_PARTICIPATION,
                   defense=DefenseConfig(**C.TRAIN_DEFENSE))
              if config in C.TRAIN_DEFENDED else {})
     strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
                            criterion=CriterionConfig(**C.TRAIN_CRITERIA.get(
-                               config, C.TRAIN_CRITERION)),
+                               twin, C.TRAIN_CRITERION)),
                            eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra,
-                           **C.TRAIN_RULES.get(config, {}))
+                           **C.train_fields(config))
     opt = sgd()
     state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
                              ("data",))
@@ -117,9 +121,12 @@ for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
         wire="float" if config.endswith("float") else "packed",
         microbatch=C.TRAIN_MICROBATCH))
     rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
-           "bits_spent": [], "rejects": []}
+           "bits_spent": [], "rejects": [], "state_dtypes": []}
     for _ in range(C.TRAIN_STEPS):
         state, met = step(state, batch)
+        rec["state_dtypes"].append(",".join(sorted({
+            str(l.dtype) for l in jax.tree.leaves(state.comm.qhat)
+            + jax.tree.leaves(state.comm.server_agg)})))
         rec["loss"].append(float(met.loss))
         rec["uploads"].append(int(met.uploads))
         rec["bits"].append(float(met.bits))
@@ -207,6 +214,20 @@ def _wires_bitwise(got, float_cfg, packed_cfg, fields):
                                           g[f"{float_cfg}/{field}"])
 
 
+@pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
+def test_state_dtypes_after_every_step(runs, config):
+    """``qhat`` and ``server_agg`` are stored in bfloat16 after every step
+    under ``state_bf16``, on every rank and in the reference, and in
+    float32 otherwise."""
+    want, got = runs
+    dtype = "bfloat16" if config in C.TRAIN_BF16 else "float32"
+    np.testing.assert_array_equal(want[f"{config}/state_dtypes"],
+                                  [dtype] * C.TRAIN_STEPS)
+    for g in got:
+        np.testing.assert_array_equal(g[f"{config}/state_dtypes"],
+                                      [dtype] * C.TRAIN_STEPS)
+
+
 def test_packed_and_float_wires_give_bitwise_equal_params(runs):
     _, got = runs
     _wires_bitwise(got, "float", "packed",
@@ -277,11 +298,13 @@ def test_defended_wires_give_bitwise_equal_params(runs):
 
 # (make_train_step keywords, exception or None, message, id).  The ids
 # name the branches the sharded step lacked before participation, the
-# defense, the lazy rules, SVRG and the compressors were ported:
+# defense, the lazy rules, SVRG, the compressors and bfloat16 state were
+# ported (``RoundEngine`` refuses bfloat16 state, as the reference's
+# engine cannot run it: ``test_torch_faults.py``):
 # "Participation", the two "Robustness" cases and the two compressor cases
 # are now the reference's own refusals (repro/launch/train.py), raised as
-# ValueError with its reasons; the two "Lazy rules and SVRG" cases build a
-# step (exception None).
+# ValueError with its reasons; the two "Lazy rules and SVRG" cases and
+# "state_bf16" build a step (exception None).
 GATED = [
     (dict(strategy=dict(lazy_rule="lasg_wk2")), None, None,
      "Lazy rules and SVRG"),
@@ -310,8 +333,7 @@ GATED = [
     (dict(strategy=dict(faults=FaultConfig(corrupt_p=0.1,
                                            corrupt_kind="bitflip"))),
      ValueError, "fault injection", "bitflip"),
-    (dict(strategy=dict(state_bf16=True)), NotImplementedError,
-     "Memory: state_bf16", "state_bf16"),
+    (dict(strategy=dict(state_bf16=True)), None, None, "state_bf16"),
 ]
 
 
@@ -467,3 +489,109 @@ def test_reference_refuses_float32_iterates_of_a_bf16_model(strategy):
                             worker_axes=("data",), wire="float"))
     with pytest.raises(TypeError, match="carry"):
         step(state, {"tokens": tok[:, :-1], "targets": tok[:, 1:]})
+
+
+def _bf16_planted(rng, n=2048):
+    """float32 normals with a quarter of them on bfloat16 rounding ties
+    (low half 0x8000, under odd and even upper halves), and +-0, +-inf,
+    NaN, float32 subnormals, bfloat16 subnormals and a subnormal tie
+    planted."""
+    a = rng.standard_normal(n).astype(np.float32)
+    u = a.view(np.uint32)
+    tie = rng.choice(n, n // 4, replace=False)
+    u[tie] = (u[tie] & 0xFFFF0000) | 0x8000
+    special = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                        0x7FC00000, 0x00000001, 0x80012345, 0x00010000,
+                        0x00018000, 0x80038000, 0x00007FFF],
+                       np.uint32).view(np.float32)
+    a[rng.choice(n, 100, replace=False)] = special[rng.integers(0, 11, 100)]
+    return a
+
+
+def _bits_equal(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    np.testing.assert_array_equal(np.isnan(got.astype(np.float32)),
+                                  np.isnan(want.astype(np.float32)),
+                                  err_msg=what)
+    ok = ~np.isnan(want.astype(np.float32))
+    view = np.uint16 if got.itemsize == 2 else np.uint32
+    np.testing.assert_array_equal(got.view(view)[ok], want.view(view)[ok],
+                                  err_msg=what)
+
+
+@pytest.mark.parametrize("kind,backend,opt", [("gd", "reference", "sgd"),
+                                              ("laq", "reference", "sgd"),
+                                              ("laq", "fused", "sgd"),
+                                              ("laq", "fused", "momentum")])
+def test_bf16_state_commit_and_server_recursion_match_jitted_reference(
+        kind, backend, opt):
+    """One forced upload (``worker_update``) with a bfloat16 ``qhat`` and
+    the server recursion with a bfloat16 ``server_agg``, against the
+    reference's under ``jax.jit``, bit for bit: ``qhat_new`` (bfloat16,
+    ``q_new`` rounded to nearest even), the float32 ``agg =
+    f32(server_agg) + delta`` that the optimizer reads, the stored
+    ``agg_store`` and the update (sgd, and momentum, which has a
+    state).  The planted values put ``q_new``
+    (the dense kind sends ``q_new = g``), ``agg`` and the stored copies on
+    ties, +-0, +-inf, NaN and subnormals; the quantized kind takes finite
+    gradients, whose radius is finite.  NaN is compared as NaN: its
+    payload is the platform's."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.core.strategy import StrategyConfig as RefStrategy
+    from repro.core.strategy import worker_update as ref_update
+    from repro import optim as ref_optim
+    from repro_torch.core.strategy import worker_update
+    from repro_torch.launch.train import _server_update
+    from repro_torch.optim import optimizers as optim
+
+    rng = np.random.default_rng({"gd": 1, "laq": 2}[kind]
+                                + (backend == "fused") + (opt != "sgd"))
+    g, sa = _bf16_planted(rng), _bf16_planted(rng)
+    # normal parameters: XLA's CPU update flushes a subnormal parameter
+    p = rng.standard_normal(g.size).astype(np.float32)
+    if kind != "gd":
+        g = np.where(np.isfinite(g), g, np.float32(0.5))
+    qh = _bf16_planted(rng)
+    qh = np.where(np.isfinite(qh), qh, np.float32(-1.0)) if kind != "gd" \
+        else qh
+    qh16 = np.asarray(jnp.asarray(qh).astype(jnp.bfloat16))
+    sa16 = np.asarray(jnp.asarray(sa).astype(jnp.bfloat16))
+    lr, t_bar = 0.1, 100
+    common = dict(kind=kind, bits=4, wire_backend=backend, state_bf16=True)
+
+    def ref(g, qh, sa, p):
+        wu = ref_update({"w": g}, {"w": qh}, jnp.float32(0.0),
+                        jnp.int32(t_bar), jnp.float32(0.0),
+                        jnp.zeros(10, jnp.float32), lr, 1,
+                        RefStrategy(**common), step=jnp.int32(0))
+        agg = sa.astype(jnp.float32) + wu.delta_masked["w"]
+        o = getattr(ref_optim, opt)()
+        new_p, _ = o.update({"w": agg}, o.init({"w": p}), {"w": p}, lr)
+        return wu.qhat_new["w"], agg, agg.astype(sa.dtype), new_p["w"]
+
+    want = jax.jit(ref)(g, qh16, sa16, p)
+    tt = lambda a: torch.from_numpy(np.array(a))
+    to16 = lambda a: tt(a.view(np.uint16).astype(np.int16)).view(
+        torch.bfloat16)
+    wo = worker_update({"w": tt(g)}, {"w": to16(qh16)}, torch.zeros(()),
+                       t_bar, torch.zeros(10), lr, 1,
+                       StrategyConfig(**common), step=0)
+    assert wo.committed
+    delta, server = wo.delta_masked, {"w": to16(sa16)}
+    o = getattr(optim, opt)()
+    new_p, _, _ = _server_update(o, server, [delta], o.init({"w": tt(p)}),
+                                 {"w": tt(p)}, lr)
+    b16 = lambda t: t.view(torch.int16).numpy().view(np.uint16)
+    for what, got, w in (("qhat_new", b16(wo.qhat_new["w"]), want[0]),
+                         ("agg", delta["w"].numpy(), want[1]),
+                         ("agg_store", b16(server["w"]), want[2]),
+                         ("params", new_p["w"].numpy(), want[3])):
+        w = np.asarray(w)
+        if w.dtype != np.float32:
+            w = w.view(np.uint16)
+            _bits_equal(got.view(np.float16), w.view(np.float16), what)
+        else:
+            _bits_equal(got, w, what)

@@ -118,12 +118,17 @@ TRAIN_RULES = {
     "ef_randk_float": dict(compressor="randk", compressor_k=0.1,
                            error_feedback=True),
 }
+# bfloat16 state (state_bf16): each is its twin, the configuration named
+# after "bf16_", with qhat and server_agg stored in bfloat16
+TRAIN_BF16 = ("bf16_float", "bf16_packed", "bf16_packed_adaptive",
+              "bf16_wk2_svrg_packed", "bf16_ef_topk_float")
 TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed",
-                 "hybrid_packed") + tuple(TRAIN_RULES)
+                 "hybrid_packed") + tuple(TRAIN_RULES) + TRAIN_BF16
 # pairs of configurations that differ only in the wire, beside ("float",
 # "packed"): their parameters, losses, bits and ||agg||^2 must be bitwise
 # equal
-TRAIN_WIRE_PAIRS = (("wk2_svrg_float", "wk2_svrg_packed"),)
+TRAIN_WIRE_PAIRS = (("wk2_svrg_float", "wk2_svrg_packed"),
+                    ("bf16_float", "bf16_packed"))
 # the model of each configuration (smoke variant, float32): stablelm unless
 # named here
 TRAIN_ARCHS = {"moe_packed": "qwen3-moe-30b-a3b",
@@ -137,6 +142,22 @@ TRAIN_DEFENSE = dict(validate=True, gate_mult=4.0)
 
 TRAIN_STRATEGY = dict(kind="laq", bits=4, per_leaf_radius=True,
                       wire_backend="fused")
+
+
+def train_twin(config: str) -> str:
+    """The configuration whose model, schedule, criterion and rule
+    ``config`` takes: itself, or the twin of a ``TRAIN_BF16`` one."""
+    return config[len("bf16_"):] if config in TRAIN_BF16 else config
+
+
+def train_fields(config: str) -> dict:
+    """StrategyConfig fields of ``config`` beyond ``TRAIN_STRATEGY``, the
+    schedule, the criterion and the defense: its rule, and
+    ``state_bf16``."""
+    fields = dict(TRAIN_RULES.get(train_twin(config), {}))
+    if config in TRAIN_BF16:
+        fields["state_bf16"] = True
+    return fields
 
 
 def numpy_params(shapes: dict, seed: int = 0) -> dict:
@@ -303,9 +324,12 @@ def rank_train(workers, out_dir):
     from repro_torch.models.model import init_params
     from repro_torch.optim.optimizers import sgd
 
+    from repro_torch.tree import tree_leaves
+
     out = {}
     for config in TRAIN_CONFIGS + TRAIN_DEFENDED:
-        arch = TRAIN_ARCHS.get(config, "stablelm-1.6b")
+        twin = train_twin(config)
+        arch = TRAIN_ARCHS.get(twin, "stablelm-1.6b")
         cfg = dataclasses.replace(smoke_config(get_config(arch)),
                                   param_dtype=torch.float32,
                                   compute_dtype=torch.float32)
@@ -316,16 +340,16 @@ def rank_train(workers, out_dir):
                              workers)
         sched = (BitSchedule(kind="radius", grid=GRID,
                              thresholds=TRAIN_THRESHOLDS)
-                 if config == "packed_adaptive" else None)
+                 if twin == "packed_adaptive" else None)
         extra = (dict(TRAIN_PARTICIPATION,
                       defense=DefenseConfig(**TRAIN_DEFENSE))
                  if config in TRAIN_DEFENDED else {})
         strat = StrategyConfig(
             **TRAIN_STRATEGY, bit_schedule=sched,
             criterion=CriterionConfig(**TRAIN_CRITERIA.get(
-                config, TRAIN_CRITERION)),
+                twin, TRAIN_CRITERION)),
             eta_schedule=EtaSchedule(**TRAIN_ETA), **extra,
-            **TRAIN_RULES.get(config, {}))
+            **train_fields(config))
         opt = sgd()
         params = params_from_numpy(numpy_params(shapes), device="cpu")
         state = init_train_state(params, workers, strat, opt)
@@ -334,9 +358,13 @@ def rank_train(workers, out_dir):
                                      else "packed"),
                                microbatch=TRAIN_MICROBATCH)
         rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
-               "bits_spent": [], "rejects": []}
+               "bits_spent": [], "rejects": [], "state_dtypes": []}
         for _ in range(TRAIN_STEPS):
             state, met = step(state, batch)
+            rec["state_dtypes"].append(",".join(sorted({
+                str(l.dtype).replace("torch.", "") for l in
+                tree_leaves(state.comm.qhat)
+                + tree_leaves(state.comm.server_agg)})))
             rec["loss"].append(float(met.loss))
             rec["uploads"].append(met.uploads)
             rec["bits"].append(float(met.bits))
