@@ -10,10 +10,11 @@ N(0, 1), qhat zero and R its infinity norm, as in the reference.  Each row
 is the mean of 20 launches timed with CUDA events after 3 warm-up
 launches, and records the device it ran on.  Each kernel's output is held
 bitwise against its plain version first.  The LAQ half of the reference
-(the bits sweep on the logistic-regression workers) needs the reference's
-``classification_dataset``, drawn with ``jax.random.normal`` and
-``permutation``, which ``repro_torch.random`` does not draw yet: it waits
-for the torch Table 2 benchmark (ROADMAP queue 1).
+(the bits sweep on the logistic-regression workers) is not ported yet:
+its data and models now exist in the port (``random.normal`` and
+``permutation``, ``data.synthetic.classification_dataset`` and
+``split_workers``, ``benchmarks_torch/common.py``), and it waits for its
+own change (ROADMAP queue 1).
 
 Without a CUDA device this exits non-zero: no number here is taken on the
 CPU.

@@ -164,21 +164,32 @@ class _StochasticStream:
     stream is its own."""
 
     def _init_stream(self, seed: int, device):
-        self._key0 = random.PRNGKey(seed, device=device)
+        # the stream's keys and indices are a few words a worker: they are
+        # drawn on the CPU (:mod:`repro_torch.random` hashes them in numpy)
+        # and copied to ``device`` without waiting for its queue
+        self._key0 = random.PRNGKey(seed, device="cpu")
+        self._device = device
 
-    def stream_keys(self, stream: int, step: int) -> torch.Tensor:
-        """``[W, 2]`` keys of ``stream`` at round ``step``."""
+    def _host_keys(self, stream: int, step: int) -> torch.Tensor:
         ks = random.fold_in(random.fold_in(self._key0, stream), step)
         return torch.stack([random.fold_in(ks, m)
                             for m in range(self.n_workers)])
 
+    def stream_keys(self, stream: int, step: int) -> torch.Tensor:
+        """``[W, 2]`` keys of ``stream`` at round ``step``, on the data's
+        device."""
+        return self._host_keys(stream, step).to(self._device,
+                                                non_blocking=True)
+
     def indices(self, step: int) -> torch.Tensor:
         """``[W, batch]`` int64 local indices this round's minibatches take:
-        ``randint(key_m, (batch,), 0, n_local)`` per worker."""
-        keys = self.stream_keys(0, step)
+        ``randint(key_m, (batch,), 0, n_local)`` per worker, on the data's
+        device."""
+        keys = self._host_keys(0, step)
         return torch.stack([random.randint(keys[m], (self.batch,), 0,
                                            self.n_local)
-                            for m in range(self.n_workers)]).long()
+                            for m in range(self.n_workers)]).long().to(
+            self._device, non_blocking=True)
 
     def _gather(self, idx):
         """The rows ``idx`` ([W, ...] local indices) of each worker's data."""

@@ -667,3 +667,49 @@ def test_mamba_serve_on_the_card_equals_the_cpu(cuda, arch):
     """The smoke Mamba2 models: the chunked SSD in the prefill, the
     recurrent step and the shared block's KV rows in decode."""
     _serve_card_vs_cpu(cuda, arch)
+
+
+@pytest.mark.parametrize("partitionable", (True, False))
+def test_normal_and_permutation_on_the_card_equal_the_cpu(cuda,
+                                                          partitionable):
+    """``random.normal`` (float32 bits) and ``random.permutation`` (two
+    shuffle rounds at 4001), hashed on the card and, from a CPU key, in
+    numpy, equal on both devices."""
+    from repro_torch import random
+    with random.threefry_partitionable(partitionable):
+        for n in (7, 1024, 1025, 200_001):
+            a = random.normal(random.PRNGKey(3, device="cuda"), (n,))
+            b = random.normal(random.PRNGKey(3, device="cpu"), (n,))
+            assert a.is_cuda
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+        for n in (600, 4001):
+            assert torch.equal(
+                random.permutation(random.PRNGKey(1, device="cuda"), n).cpu(),
+                random.permutation(random.PRNGKey(1, device="cpu"), n))
+
+
+@pytest.mark.parametrize("kind", ("qgd", "laq"))
+def test_paper_tables_data_on_the_card_equal_the_cpu(cuda, kind):
+    """The tables' dataset and the NN's initial weights drawn on the card,
+    bitwise equal to the CPU draw; 5 rounds of the fused-wire NN QGD and
+    LAQ equal in uploads and bits, the loss to rtol 1e-5 (the paper-table
+    tests' tolerance)."""
+    from benchmarks_torch import common
+    from repro_torch.core.simulated import run_gradient_based
+    from repro_torch.core.strategy import StrategyConfig
+    (cw, cf), (pw, pf) = (common.make_dataset(device=d)
+                          for d in ("cuda", "cpu"))
+    for a, b in zip(cw + cf, pw + pf):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    runs = {}
+    for dev, (w, _) in (("cuda", (cw, cf)), ("cpu", (pw, pf))):
+        cfg = StrategyConfig(kind=kind, bits=8, wire_backend="fused",
+                             criterion=common.PAPER_CRITERION)
+        runs[dev] = run_gradient_based(common.nn_loss(600),
+                                       common.nn_init(device=dev), w, cfg,
+                                       steps=5, alpha=2.0, device=dev)
+    assert torch.equal(runs["cuda"].cum_uploads, runs["cpu"].cum_uploads)
+    assert torch.equal(runs["cuda"].cum_bits, runs["cpu"].cum_bits)
+    torch.testing.assert_close(runs["cuda"].loss.cpu(), runs["cpu"].loss,
+                               rtol=1e-5, atol=0)

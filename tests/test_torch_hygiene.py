@@ -104,7 +104,11 @@ def test_port_files_cover_the_new_modules():
                  "src/repro_torch/configs/phi3p5_moe_42b.py",
                  "src/repro_torch/models/mamba2.py",
                  "src/repro_torch/configs/mamba2_130m.py",
-                 "src/repro_torch/configs/zamba2_2p7b.py"):
+                 "src/repro_torch/configs/zamba2_2p7b.py",
+                 "benchmarks_torch/common.py",
+                 "benchmarks_torch/tables.py",
+                 "benchmarks_torch/table2_gradient.py",
+                 "benchmarks_torch/table3_stochastic.py"):
         assert want in names, want
 
 

@@ -2,9 +2,10 @@
 threefry layouts (partitionable, the default since jax 0.5, and legacy),
 eager and jitted.
 
-Keys, ``fold_in``, ``split`` and the 32-bit draws are integers and must be
-equal.  ``uniform`` is compared by its float32 bit patterns: it is integer
-work plus an exact subtraction.
+Keys, ``fold_in``, ``split``, the 32-bit draws and ``permutation`` are
+integers and must be equal.  ``uniform`` and ``normal`` are compared by
+their float32 bit patterns; ``normal``'s ``erf_inv`` and ``log1p`` also on
+dense grids against XLA's jitted ops.
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,22 @@ SPANS = ((0, 12), (0, 16), (3, 10), (5, 5), (7, 2), (-5, 2**31 - 1),
 _j_uniform = jax.jit(jax.random.uniform, static_argnums=(1,))
 _j_randint = jax.jit(jax.random.randint, static_argnums=(1,))
 _j_bernoulli = jax.jit(jax.random.bernoulli, static_argnums=(2,))
+_j_log1p = jax.jit(jnp.log1p)
+_j_erf_inv = jax.jit(jax.lax.erf_inv)
+_j_normal_of_u = jax.jit(lambda u: np.float32(np.sqrt(2)) * jax.lax.erf_inv(u))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's torch calls.  They are many
+    small element-wise calls; with a pool of threads each, a test worker
+    that shares the CPU with others spends its time spinning on threads
+    that are not scheduled (a reduced table took 520 s, not 10, beside
+    five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _key(seed):
@@ -161,3 +178,114 @@ def test_lm_batches_match_the_reference(layout):
         for k in ("tokens", "targets"):
             assert g[k].dtype == torch.int64 and g[k].shape == (4, 16)
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+# float32 edge values: both ends of erf_inv's domain, +-0, subnormals, the
+# smallest normals, tiny normals whose square is subnormal, and the
+# endpoints of the normal draw's uniform, [nextafter(-1, 0), 1)
+_EDGES = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, 1.1754942e-38,
+                   1.17549435e-38, -1.17549435e-38, 1.2e-38, 1e-37, 1e-20,
+                   3e-20, 1e-19, 2.0 ** -24, -(2.0 ** -24), 0.5, -0.5,
+                   np.nextafter(np.float32(-1), np.float32(0)), -1.0, 1.0,
+                   np.nextafter(np.float32(1), np.float32(0))],
+                  dtype=np.float32)
+
+
+def _grid(lo, hi, n=200_001):
+    """A dense float32 grid of [lo, hi] with the edge values that lie in it."""
+    g = np.linspace(lo, hi, n, dtype=np.float32)
+    return np.concatenate([g, _EDGES[(_EDGES >= lo) & (_EDGES <= hi)]])
+
+
+@pytest.mark.parametrize("lo,hi", ((-1.0, 1.0), (-0.42, -0.40), (-1.0, -0.99),
+                                   (-1e-3, 1e-3), (1.0, 1e30)), ids=str)
+def test_log1p_is_xlas_cpu_log1p(lo, hi):
+    """``_log1p`` on a dense grid, both branches and their border at
+    sqrt(2) - 1, the logf branch's mantissa split, t = 1 + x at 0, and +inf,
+    against jitted ``jnp.log1p``, bit for bit."""
+    x = np.concatenate([_grid(lo, hi), np.float32([np.inf])]
+                       if hi > 1 else [_grid(lo, hi)])
+    np.testing.assert_array_equal(_bits(R._log1p(torch.from_numpy(x))),
+                                  _bits(_j_log1p(x)))
+
+
+@pytest.mark.parametrize("lo,hi", ((-1.0, 1.0), (0.99, 1.0), (-1.0, -0.999),
+                                   (-1e-2, 1e-2)), ids=str)
+def test_erf_inv_is_xlas_cpu_erf_inv(lo, hi):
+    """``_erf_inv`` (both of chlo's branches, w < 5 and sqrt(w) - 3) and the
+    product with f32(sqrt(2)) that ``normal`` takes, against the jitted
+    ops, bit for bit, ends, +-0 and subnormals included."""
+    u = torch.from_numpy(_grid(lo, hi))
+    np.testing.assert_array_equal(_bits(R._erf_inv(u)),
+                                  _bits(_j_erf_inv(u.numpy())))
+    np.testing.assert_array_equal(_bits(R._ftz(R._erf_inv(u) * R._SQRT2_F32)),
+                                  _bits(_j_normal_of_u(u.numpy())))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal(layout, seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), _key(seed)
+    got = R.normal(tk, shape)
+    assert tuple(got.shape) == shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(jax.random.normal(jk, shape)))
+
+
+def test_normal_of_a_large_draw(layout):
+    """200,001 draws (an odd count, so the legacy layout pads its halves)."""
+    jk, tk = jax.random.PRNGKey(5), _key(5)
+    np.testing.assert_array_equal(_bits(R.normal(tk, (200_001,))),
+                                  _bits(jax.random.normal(jk, (200_001,))))
+
+
+def test_uniform_on_an_interval(layout):
+    """``uniform`` with bounds: ``floats * (maxval - minval) + minval`` as one
+    FMA, then the max with minval, as the jitted reference."""
+    jk, tk = jax.random.PRNGKey(11), _key(11)
+    for lo, hi in ((-0.99999994, 1.0), (-3.0, 7.0), (0.1, 0.3), (2.5, 2.5)):
+        np.testing.assert_array_equal(
+            _bits(R.uniform(tk, (4097,), minval=lo, maxval=hi)),
+            _bits(jax.random.uniform(jk, (4097,), minval=lo, maxval=hi)))
+
+
+# sizes of 0 and 1 shuffle rounds (up to 1625) and of 2 (1626 on)
+@pytest.mark.parametrize("n", (0, 1, 2, 7, 600, 1625, 1626, 4001))
+@pytest.mark.parametrize("seed", (0, 3, 2**31 - 1))
+def test_permutation(layout, seed, n):
+    jk, tk = jax.random.PRNGKey(seed), _key(seed)
+    got = R.permutation(tk, n)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (n,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax.random.permutation(jk, n)))
+
+
+def test_permutation_rounds():
+    """The reference's round count, ceil(3 ln n / ln(2^32 - 1)): 0 rounds
+    leave arange(n) as it is; 1626 is the first size with two."""
+    import math
+    rounds = [math.ceil(3 * math.log(max(1, n)) / math.log(2**32 - 1))
+              for n in (0, 1, 2, 1625, 1626)]
+    assert rounds == [0, 0, 1, 1, 2]
+    assert R.permutation(_key(0), 1).tolist() == [0]
+
+
+def test_tensor_hash_path_of_small_draws(layout, monkeypatch):
+    """A key on the card hashes with int64 tensor operations, not numpy's
+    uint32; that path, forced here on the CPU, gives the reference's bits
+    for keys, integers, floats and a shuffle."""
+    monkeypatch.setattr(R, "_counters", lambda key, n: torch.arange(
+        n, dtype=torch.int64, device=key.device))
+    jk, tk = jax.random.PRNGKey(7), _key(7)
+    np.testing.assert_array_equal(R.fold_in(tk, 2**32 - 1).numpy(),
+                                  _u32(jax.random.fold_in(jk, 2**32 - 1)))
+    for num in (1, 3):
+        np.testing.assert_array_equal(R.split(tk, num).numpy(),
+                                      _u32(jax.random.split(jk, num)))
+    np.testing.assert_array_equal(R.randint(tk, (7,), -5, 2**31 - 1).numpy(),
+                                  np.asarray(_j_randint(jk, (7,), -5,
+                                                        2**31 - 1)))
+    np.testing.assert_array_equal(_bits(R.normal(tk, (3, 5))),
+                                  _bits(jax.random.normal(jk, (3, 5))))
+    np.testing.assert_array_equal(R.permutation(tk, 600).numpy(),
+                                  np.asarray(jax.random.permutation(jk, 600)))
