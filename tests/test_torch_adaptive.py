@@ -20,6 +20,7 @@ from repro_torch.core import adaptive as tad
 from repro_torch.core import wire as twire
 from repro_torch.core.quantize import fma_f32
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 P = 123_457
 SCHEDULES = {

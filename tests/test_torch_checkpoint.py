@@ -23,6 +23,7 @@ import torch_engine_cases as C
 from repro.checkpoint import load_checkpoint as jload
 from repro.checkpoint import save_checkpoint as jsave
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+from torch_threads import one_thread  # noqa: F401
 
 
 class Pair(NamedTuple):

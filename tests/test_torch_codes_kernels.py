@@ -24,6 +24,7 @@ from repro.kernels.ref import dequant_acc_ref as jdequant_acc_ref
 from repro_torch.core import wire as twire
 from repro_torch.core.adaptive import tau_of_selection
 from repro_torch.kernels import ops
+from torch_threads import one_thread  # noqa: F401
 
 BITS = (1, 2, 4, 8)
 CASES = ("two_blocks", "ragged", "zero_radius", "odd")

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

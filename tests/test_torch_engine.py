@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.criterion import CriterionConfig
 from repro_torch.core.simulated import run_gradient_based
 from repro_torch.core.strategy import StrategyConfig
+from torch_threads import one_thread  # noqa: F401
 
 GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "data", "engine_goldens.npz")

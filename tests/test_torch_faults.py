@@ -37,6 +37,7 @@ from repro_torch import random as R
 from repro_torch.core import defense as tdef
 from repro_torch.core import faults as tfaults
 from repro_torch.core.wire import codes_of_delta, delta_of_codes
+from torch_threads import one_thread  # noqa: F401
 
 SEEDS, STEPS = (0, 5, 2**31 + 7), (0, 1, 17, 300)
 

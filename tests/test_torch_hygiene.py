@@ -13,6 +13,7 @@ from repro_torch.core.simulated import run_stochastic
 from repro_torch.data.synthetic import lm_worker_corpus
 from repro_torch.kernels import ops
 from repro_torch.models.model import init_params
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))

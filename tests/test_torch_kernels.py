@@ -19,6 +19,7 @@ from repro.core.wire import _fused_leaf_jnp
 from repro.kernels import ops as jops
 from repro_torch.core.quantize import unpack_codes
 from repro_torch.kernels import ops
+from torch_threads import one_thread  # noqa: F401
 
 BITS = (1, 2, 4, 8)
 CASES = ("two_blocks", "ragged", "zero_radius")

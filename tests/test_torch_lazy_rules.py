@@ -19,6 +19,7 @@ from repro.core.criterion import CriterionConfig as JCriterion
 from repro_torch.core import lazy_rules as T
 from repro_torch.core.criterion import CriterionConfig
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = {"a": (37, 5), "b": (123,), "c": (4, 4, 3)}
 COUNTS = (0.0, 1.0, 5.0, 31.0, 37.0, 95.0)

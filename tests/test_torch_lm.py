@@ -57,6 +57,7 @@ from repro_torch.data.synthetic import lm_worker_corpus
 from repro_torch.models.config import n_params
 from repro_torch.models.model import init_params, lm_loss, lm_worker_loss
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 W, N_LOCAL, SEQ, ACCUM, ROUNDS, ALPHA = 4, 2, 32, 2, 12, 0.05
 

@@ -48,6 +48,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward, init_cache, prefill
 from repro_torch.models.stack import mamba_block_fwd
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

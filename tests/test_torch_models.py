@@ -45,6 +45,7 @@ from repro_torch.models.config import ModelConfig, n_active_params, n_params
 from repro_torch.models.model import (decode_step, forward, init_params,
                                       prefill)
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 NEW_ARCHS = ("qwen3-8b", "yi-6b", "yi-9b", "chameleon-34b",
              "musicgen-medium", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",

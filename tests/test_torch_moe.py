@@ -62,23 +62,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (AUX_LOSS_WEIGHT, forward_with_aux,
                                       lm_loss, lm_worker_loss)
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 LAYER = dict(name="t", arch_type="moe", n_layers=1, d_model=32, vocab=64,
              n_heads=2, n_kv_heads=2, head_dim=16, n_experts=4, top_k=2,
              moe_d_ff=16)
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's side: the tier-1 run puts six
-    pytest workers on the CPUs, and torch's thread pool then oversubscribes
-    them (the LAQ rounds below: 16 s alone either way; beside 8 busy
-    processes, 27 s with one thread and 163 s with 8)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _layer(**kw):

@@ -19,6 +19,7 @@ from repro.optim import momentum as jmomentum
 from repro.optim import sgd as jsgd
 from repro_torch.optim.optimizers import adamw, momentum, sgd
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = {"w": (300, 7), "b": (1000,), "s": (3,)}
 OPTS = {"sgd": (jsgd, sgd, {}), "momentum": (jmomentum, momentum,

@@ -34,6 +34,7 @@ import benchmarks_torch.table3_stochastic as T3
 from repro import data as jdata
 from repro_torch import random as R
 from repro_torch.data import synthetic as tdata
+from torch_threads import one_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 # SSGD's bits and loss once its support differs; the largest gaps seen:
@@ -46,19 +47,6 @@ STEPS = {"table2": dict(STEPS_LOGREG=30, STEPS_NN=20),
          "table3": dict(STEPS=20, STEPS_NN=15)}
 MODULES = {"table2": (J2, T2, "run_gradient_based"),
            "table3": (J3, T3, "run_stochastic")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's torch calls.  They are many
-    small element-wise calls; with a pool of threads each, a test worker
-    that shares the CPU with others spends its time spinning on threads
-    that are not scheduled (a reduced table took 520 s, not 10, beside
-    five other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(x):

@@ -25,6 +25,7 @@ from repro.core.simulated import run_gradient_based as jrun_gb
 from repro.core.simulated import run_stochastic as jrun_st
 from repro_torch.core import engine as tengine
 from repro_torch.core.simulated import run_gradient_based, run_stochastic
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("W", (1, 3, 10))

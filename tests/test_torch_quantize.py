@@ -14,6 +14,7 @@ import torch
 from repro.core import quantize as jq
 from repro_torch.core import quantize as tq
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 BITS = (1, 2, 4, 8)
 SIZES = (1, 7, 4096 * 2, 4096 + 37)

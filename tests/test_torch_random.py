@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import random as R
+from torch_threads import one_thread  # noqa: F401
 
 SEEDS = (0, 2, 12345, 2**31 - 1, 2**32 + 7, -3)
 SHAPES = ((), (0,), (1,), (7,), (8,), (3, 5))
@@ -29,19 +30,6 @@ _j_bernoulli = jax.jit(jax.random.bernoulli, static_argnums=(2,))
 _j_log1p = jax.jit(jnp.log1p)
 _j_erf_inv = jax.jit(jax.lax.erf_inv)
 _j_normal_of_u = jax.jit(lambda u: np.float32(np.sqrt(2)) * jax.lax.erf_inv(u))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's torch calls.  They are many
-    small element-wise calls; with a pool of threads each, a test worker
-    that shares the CPU with others spends its time spinning on threads
-    that are not scheduled (a reduced table took 520 s, not 10, beside
-    five other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _key(seed):

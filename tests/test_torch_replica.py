@@ -43,6 +43,7 @@ from repro_torch.launch.publish import (ReplicaFleet, publish_trajectory,
                                         trainer_rounds)
 from repro_torch.tree import tree_leaves, tree_map
 from test_replica import _trajectory as jax_trajectory
+from torch_threads import one_thread  # noqa: F401
 
 BACKENDS = ("reference", "fused")
 RADIUS = dict(kind="radius", grid=(2, 4, 8), threshold_mode="rel",

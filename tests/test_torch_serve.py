@@ -41,6 +41,7 @@ from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       prefill)
+from torch_threads import one_thread  # noqa: F401
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 TOL = {jnp.float32: 2e-5, jnp.bfloat16: 0.0625}

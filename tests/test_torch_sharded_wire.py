@@ -17,6 +17,7 @@ import pytest
 
 import torch_dist_cases as C
 from repro_torch.launch.train import exchange_mode
+from torch_threads import one_thread  # noqa: F401
 
 JAX_SIDE = r'''
 import os, sys

@@ -35,6 +35,7 @@ from repro_torch import random as R
 from repro_torch.core.criterion import CriterionConfig
 from repro_torch.core.simulated import run_stochastic
 from repro_torch.core.strategy import StrategyConfig
+from torch_threads import one_thread  # noqa: F401
 
 GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "data", "engine_goldens.npz")

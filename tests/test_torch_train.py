@@ -11,28 +11,28 @@ carried into the port by ``repro_torch.convert``) and the same batch;
 worker m takes rows [2m, 2m + 2), whose tokens come from vocabularies of
 different sizes, so that the skip rule (xi = 0.3 without the quantization
 slack, or the configuration's own in ``torch_dist_cases.TRAIN_CRITERIA``)
-keeps some workers and not others after step 1.  The
-configurations, 3 steps each: the float wire, the packed wire at b=4, the
-packed wire with the adaptive schedule on the grid (2, 4, 8), whose
-absolute thresholds give the workers different widths, and the packed
-wire at b=4 on smoke qwen3-moe-30b-a3b (15 leaves; its router's aux enters
-the loss and the gradient through ``lm_loss``) and on smoke zamba2-2.7b
-(29 leaves: the Mamba2 blocks and the shared attention block); the lazy
-rules lasg_wk, lasg_wk2 and lasg_ps and SVRG's streaming anchor
-(refreshed in steps 1 and 3) on the packed wire, lasg_wk2 + SVRG on both
-wires (the anchor's and the stale iterate's backprops through the same
-microbatch fold), and EF-top-k, rand-k and EF-rand-k on the float wire
-(``torch_dist_cases.TRAIN_RULES``, each with a criterion that splits the
-workers); five of these again with ``qhat`` and ``server_agg`` stored in
-bfloat16 (``torch_dist_cases.TRAIN_BF16``: the float, packed and adaptive
-wires, wk2 + SVRG packed and EF-top-k, whose dtypes are checked after
-every step, on every rank and in the reference); and both wires
-with bernoulli participation (p=0.5) and the defense's validation and
-norm gate, where each worker reads its slot of the round's cohort and an
-absent or rejected worker is masked off the wire like a skip.  All run
-``microbatch=2`` and the 1/t stepsize.  The reference's state is built
-around the test's parameters (``init_comm_state``): lasg_ps and lasg_wk2
-snapshot the initial iterate, SVRG anchors at it.
+keeps some workers and not others after step 1.  The configurations
+(``torch_dist_cases``), 3 steps each, are split into four groups, each
+run by its own reference subprocess and its own four ranks in its own
+file, so that the tier-1 run puts them on different workers:
+
+- this file (``TRAIN_BASE``): the float wire, the packed wire at b=4, the
+  packed wire with the adaptive schedule on the grid (2, 4, 8), whose
+  absolute thresholds give the workers different widths, and the packed
+  wire at b=4 on smoke qwen3-moe-30b-a3b (15 leaves; its router's aux
+  enters the loss and the gradient through ``lm_loss``) and on smoke
+  zamba2-2.7b (29 leaves: the Mamba2 blocks and the shared attention
+  block);
+- ``test_torch_train_lazy.py`` (``TRAIN_RULES``): the lazy rules and
+  SVRG, and the compressors with error feedback on the float wire;
+- ``test_torch_train_bf16.py`` (``TRAIN_BF16``): five of these again with
+  ``qhat`` and ``server_agg`` stored in bfloat16;
+- ``test_torch_train_defended.py`` (``TRAIN_DEFENDED``): both wires with
+  bernoulli participation and the defense.
+
+All run ``microbatch=2`` and the 1/t stepsize.  The reference's state is
+built around the test's parameters (``init_comm_state``): lasg_ps and
+lasg_wk2 snapshot the initial iterate, SVRG anchors at it.
 
 Tolerances: uploads, bits and each worker's cumulative bits (which fix its
 widths) exactly; the loss to rtol 1e-4 (the two frameworks reduce in other
@@ -49,8 +49,6 @@ not compared with the reference.  Within the port, the packed and float
 wires give bitwise-equal parameters, losses, bits and ``||agg||^2``, and
 all four ranks hold the same parameters.
 """
-import os
-
 import numpy as np
 import pytest
 
@@ -62,124 +60,19 @@ from repro_torch.core.strategy import StrategyConfig
 from repro_torch.launch.mesh import WorkerGroup
 from repro_torch.launch.train import make_train_step
 from repro_torch.optim.optimizers import sgd
+from torch_threads import one_thread  # noqa: F401
 
-JAX_SIDE = r'''
-import os, sys
-sys.path.insert(0, os.environ["TESTS_DIR"])
-import dataclasses
-import numpy as np
-import jax, jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-import torch_dist_cases as C
-from repro.configs import get_config, smoke_config
-from repro.core.adaptive import BitSchedule, EtaSchedule
-from repro.core.criterion import CriterionConfig
-from repro.core.defense import DefenseConfig
-from repro.core.strategy import StrategyConfig, init_comm_state
-from repro.launch.train import init_train_state, make_train_step
-from repro.models import init_params
-from repro.optim import sgd
-
-# jax.make_mesh gives Explicit axes on jax 0.9, under which the embedding
-# gather of models/stack.py raises; a Mesh of Auto axes runs the step
-mesh = Mesh(np.array(jax.devices()).reshape(C.TRAIN_W, 1), ("data", "model"))
-out = {}
-for config in C.TRAIN_CONFIGS + C.TRAIN_DEFENDED:
-    twin = C.train_twin(config)
-    arch = C.TRAIN_ARCHS.get(twin, "stablelm-1.6b")
-    cfg = dataclasses.replace(smoke_config(get_config(arch)),
-                              param_dtype=jnp.float32,
-                              compute_dtype=jnp.float32)
-    abstract = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), cfg))
-    names = {jax.tree_util.keystr(p, simple=True, separator="."): l.shape
-             for p, l in jax.tree_util.tree_flatten_with_path(abstract)[0]}
-    params0 = C.numpy_params(names)
-    batch = jax.device_put({k: jnp.asarray(v, jnp.int32)
-                            for k, v in C.train_batch(cfg.vocab).items()},
-                           NamedSharding(mesh, P("data", None)))
-    sched = (BitSchedule(kind="radius", grid=C.GRID,
-                         thresholds=C.TRAIN_THRESHOLDS)
-             if twin == "packed_adaptive" else None)
-    extra = (dict(C.TRAIN_PARTICIPATION,
-                  defense=DefenseConfig(**C.TRAIN_DEFENSE))
-             if config in C.TRAIN_DEFENDED else {})
-    strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
-                           criterion=CriterionConfig(**C.TRAIN_CRITERIA.get(
-                               twin, C.TRAIN_CRITERION)),
-                           eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra,
-                           **C.train_fields(config))
-    opt = sgd()
-    state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
-                             ("data",))
-    # the state around params0: lasg_ps and lasg_wk2 snapshot the
-    # initial iterate as theta_last, SVRG as its anchor
-    params = jax.tree.map(jnp.asarray, params0)
-    state = state._replace(params=params, opt_state=opt.init(params),
-                           comm=init_comm_state(params, C.TRAIN_W, strat))
-    step = jax.jit(make_train_step(
-        cfg, mesh, strat, opt, lr=C.TRAIN_LR, worker_axes=("data",),
-        wire="float" if config.endswith("float") else "packed",
-        microbatch=C.TRAIN_MICROBATCH))
-    rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
-           "bits_spent": [], "rejects": [], "state_dtypes": []}
-    for _ in range(C.TRAIN_STEPS):
-        state, met = step(state, batch)
-        rec["state_dtypes"].append(",".join(sorted({
-            str(l.dtype) for l in jax.tree.leaves(state.comm.qhat)
-            + jax.tree.leaves(state.comm.server_agg)})))
-        rec["loss"].append(float(met.loss))
-        rec["uploads"].append(int(met.uploads))
-        rec["bits"].append(float(met.bits))
-        rec["grad_sq"].append(float(met.grad_sq))
-        rec["bits_spent"].append(np.asarray(state.comm.bits_spent))
-        rej = state.comm.defense.rejects
-        rec["rejects"].append(np.full(C.TRAIN_W, -1) if rej is None
-                              else np.asarray(rej))
-    for k, v in rec.items():
-        out[f"{config}/{k}"] = np.asarray(v)
-    out[f"{config}/total_uploads"] = np.asarray(state.comm.total_uploads)
-    for k, v in C.flat_names(jax.tree.map(np.asarray, state.params)).items():
-        out[f"{config}/params/{k}"] = v
-np.savez(os.path.join(os.environ["OUT"], "train_jax.npz"), **out)
-'''
-
-
-LEAVES = {"moe_packed": 15, "hybrid_packed": 29}
+CONFIGS = C.TRAIN_BASE
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("sharded_step"))
-    jax_side = C.run_jax(JAX_SIDE, out)
-    try:
-        C.spawn_ranks("rank_train", C.TRAIN_W, out)
-    finally:
-        C.finish(jax_side, "the reference's sharded step")
-    want = np.load(os.path.join(out, "train_jax.npz"))
-    got = [np.load(os.path.join(out, f"train_{m}.npz"))
-           for m in range(C.TRAIN_W)]
-    return want, got
+    return C.run_train(str(tmp_path_factory.mktemp("sharded_step")), CONFIGS)
 
 
-def _params(npz, config):
-    pre = f"{config}/params/"
-    return {k[len(pre):]: npz[k] for k in npz.files if k.startswith(pre)}
-
-
-@pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS)
 def test_uploads_bits_and_widths_match_reference(runs, config):
-    want, got = runs
-    ups = want[f"{config}/uploads"]
-    assert ups[0] == C.TRAIN_W
-    assert any(0 < u < C.TRAIN_W for u in ups[1:]), ups
-    for m, g in enumerate(got):
-        np.testing.assert_array_equal(g[f"{config}/uploads"], ups)
-        np.testing.assert_array_equal(g[f"{config}/bits"],
-                                      want[f"{config}/bits"])
-        np.testing.assert_array_equal(g[f"{config}/bits_spent"],
-                                      want[f"{config}/bits_spent"][:, m])
-        assert int(g[f"{config}/total_uploads"]) == int(
-            want[f"{config}/total_uploads"])
+    C.check_uploads_bits_and_widths(runs, config)
 
 
 def test_adaptive_workers_take_different_widths(runs):
@@ -190,110 +83,26 @@ def test_adaptive_workers_take_different_widths(runs):
     assert len(set(first.tolist())) > 1, first
 
 
-@pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS)
 def test_loss_and_params_match_reference(runs, config):
-    want, got = runs
-    np.testing.assert_allclose(got[0][f"{config}/loss"],
-                               want[f"{config}/loss"], rtol=1e-4)
-    w, g = _params(want, config), _params(got[0], config)
-    assert w.keys() == g.keys()
-    assert len(w) == LEAVES.get(config, 12)
-    for k in w:
-        np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
-                                   err_msg=k)
+    C.check_loss_and_params(runs, config)
 
 
-def _wires_bitwise(got, float_cfg, packed_cfg, fields):
-    for g in got:
-        f, p = _params(g, float_cfg), _params(g, packed_cfg)
-        assert f.keys() == p.keys()
-        for k in f:
-            np.testing.assert_array_equal(p[k], f[k], err_msg=k)
-        for field in fields:
-            np.testing.assert_array_equal(g[f"{packed_cfg}/{field}"],
-                                          g[f"{float_cfg}/{field}"])
-
-
-@pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS)
 def test_state_dtypes_after_every_step(runs, config):
-    """``qhat`` and ``server_agg`` are stored in bfloat16 after every step
-    under ``state_bf16``, on every rank and in the reference, and in
-    float32 otherwise."""
-    want, got = runs
-    dtype = "bfloat16" if config in C.TRAIN_BF16 else "float32"
-    np.testing.assert_array_equal(want[f"{config}/state_dtypes"],
-                                  [dtype] * C.TRAIN_STEPS)
-    for g in got:
-        np.testing.assert_array_equal(g[f"{config}/state_dtypes"],
-                                      [dtype] * C.TRAIN_STEPS)
+    C.check_state_dtypes(runs, config)
 
 
 def test_packed_and_float_wires_give_bitwise_equal_params(runs):
     _, got = runs
-    _wires_bitwise(got, "float", "packed",
-                   ("loss", "uploads", "bits", "grad_sq", "bits_spent"))
+    C.check_wires_bitwise(got, "float", "packed",
+                          ("loss", "uploads", "bits", "grad_sq",
+                           "bits_spent"))
 
 
-@pytest.mark.parametrize("float_cfg,packed_cfg", C.TRAIN_WIRE_PAIRS)
-def test_lazy_packed_and_float_wires_give_bitwise_equal_params(
-        runs, float_cfg, packed_cfg):
-    """The same check under lasg_wk2 + SVRG: the anchor's and the stale
-    iterate's backprops, the refresh and the correction are the same on
-    both wires, so only the bytes on the link differ."""
-    _, got = runs
-    _wires_bitwise(got, float_cfg, packed_cfg,
-                   ("loss", "uploads", "bits", "grad_sq", "bits_spent"))
-
-
-@pytest.mark.parametrize("config", C.TRAIN_CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS)
 def test_every_rank_holds_the_same_params(runs, config):
-    _, got = runs
-    first = _params(got[0], config)
-    for g in got[1:]:
-        for k, v in _params(g, config).items():
-            np.testing.assert_array_equal(v, first[k], err_msg=k)
-
-
-@pytest.mark.parametrize("config", C.TRAIN_DEFENDED)
-def test_participation_and_defense_match_reference(runs, config):
-    """Bernoulli participation (p=0.5) with validation and the norm gate:
-    each worker reads its slot of the cohort, and uploads, bits, every
-    worker's bits and rejections equal the reference's; loss and
-    parameters as above."""
-    from repro_torch.core.engine import participation_mask
-    want, got = runs
-    strat = StrategyConfig(**C.TRAIN_PARTICIPATION)
-    masks = [participation_mask(strat, k, C.TRAIN_W).numpy()
-             for k in range(C.TRAIN_STEPS)]
-    assert not all(m.all() for m in masks)       # a worker was absent
-    ups = want[f"{config}/uploads"]
-    assert ups[0] == masks[0].sum()
-    for m, g in enumerate(got):
-        for field in ("uploads", "bits"):
-            np.testing.assert_array_equal(g[f"{config}/{field}"],
-                                          want[f"{config}/{field}"])
-        np.testing.assert_array_equal(g[f"{config}/bits_spent"],
-                                      want[f"{config}/bits_spent"][:, m])
-        np.testing.assert_array_equal(g[f"{config}/rejects"],
-                                      want[f"{config}/rejects"][:, m])
-        if not masks[0][m]:
-            assert g[f"{config}/bits_spent"][0] == 0.0
-    np.testing.assert_allclose(got[0][f"{config}/loss"],
-                               want[f"{config}/loss"], rtol=1e-4)
-    w, g = _params(want, config), _params(got[0], config)
-    for k in w:
-        np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
-                                   err_msg=k)
-    for other in got[1:]:
-        for k, v in _params(other, config).items():
-            np.testing.assert_array_equal(v, g[k], err_msg=k)
-
-
-def test_defended_wires_give_bitwise_equal_params(runs):
-    _, got = runs
-    _wires_bitwise(got, "defended_float", "defended_packed",
-                   ("loss", "uploads", "bits", "grad_sq", "bits_spent",
-                    "rejects"))
+    C.check_every_rank_holds_the_same_params(runs, config)
 
 
 # (make_train_step keywords, exception or None, message, id).  The ids

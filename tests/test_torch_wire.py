@@ -15,6 +15,7 @@ import torch
 from repro.core import wire as jwire
 from repro_torch.core import wire as twire
 from repro_torch.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = {"w": (65, 33), "b": (4096 + 7,), "empty": (0, 4), "s": (3,)}
 

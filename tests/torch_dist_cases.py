@@ -1,7 +1,8 @@
-"""Shared pieces of the port's distributed tests (``test_torch_sharded_wire.py``,
-``test_torch_train.py``): the cases' inputs, made with numpy from seeds so
-that the JAX side and the port's ranks build the same arrays on their own,
-and the rank side of each comparison.
+"""Shared pieces of the port's distributed tests (``test_torch_sharded_wire.py``
+and the sharded step's four ``test_torch_train*.py`` files): the cases'
+inputs, made with numpy from seeds so that the JAX side and the port's
+ranks build the same arrays on their own, both sides of each comparison,
+and the checks that the sharded step's files share.
 
 This module imports no JAX.  The JAX side runs in a subprocess with four
 forced host devices; the port's side runs in gloo ranks spawned from the
@@ -122,8 +123,9 @@ TRAIN_RULES = {
 # after "bf16_", with qhat and server_agg stored in bfloat16
 TRAIN_BF16 = ("bf16_float", "bf16_packed", "bf16_packed_adaptive",
               "bf16_wk2_svrg_packed", "bf16_ef_topk_float")
-TRAIN_CONFIGS = ("float", "packed", "packed_adaptive", "moe_packed",
-                 "hybrid_packed") + tuple(TRAIN_RULES) + TRAIN_BF16
+# the wires, the adaptive schedule and the MoE and hybrid models
+TRAIN_BASE = ("float", "packed", "packed_adaptive", "moe_packed",
+              "hybrid_packed")
 # pairs of configurations that differ only in the wire, beside ("float",
 # "packed"): their parameters, losses, bits and ||agg||^2 must be bitwise
 # equal
@@ -207,12 +209,13 @@ def train_batch(vocab: int) -> dict:
 # Running the two sides.
 # ---------------------------------------------------------------------------
 
-def run_jax(script: str, out_dir: str) -> subprocess.Popen:
-    """Start the JAX side (``script``, run with this directory importable
-    and ``OUT`` set to ``out_dir``); the caller waits with :func:`finish`."""
+def run_jax(script: str, out_dir: str, **env) -> subprocess.Popen:
+    """Start the JAX side (``script``, run with this directory importable,
+    ``OUT`` set to ``out_dir`` and the variables ``env`` set); the caller
+    waits with :func:`finish`."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", OUT=out_dir,
                TESTS_DIR=os.path.dirname(os.path.abspath(__file__)),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS="--xla_force_host_platform_device_count=4", **env)
     return subprocess.Popen([sys.executable, "-c", script], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -306,10 +309,11 @@ def rank_packed_aggregate(workers, out_dir):
     np.savez(os.path.join(out_dir, f"wire_{workers.size}_{m}.npz"), **out)
 
 
-def rank_train(workers, out_dir):
-    """The step configurations (TRAIN_CONFIGS and TRAIN_DEFENDED), 3 steps
-    each, from the same parameters and batch; each rank saves its metrics,
-    its bits and rejections, and the final parameters."""
+def rank_train(workers, out_dir, configs):
+    """The step configurations ``configs`` (of TRAIN_BASE, TRAIN_RULES,
+    TRAIN_BF16 and TRAIN_DEFENDED), 3 steps each, from the same parameters
+    and batch; each rank saves its metrics, its bits and rejections, and
+    the final parameters."""
     import dataclasses
 
     import torch
@@ -327,7 +331,7 @@ def rank_train(workers, out_dir):
     from repro_torch.tree import tree_leaves
 
     out = {}
-    for config in TRAIN_CONFIGS + TRAIN_DEFENDED:
+    for config in configs:
         twin = train_twin(config)
         arch = TRAIN_ARCHS.get(twin, "stablelm-1.6b")
         cfg = dataclasses.replace(smoke_config(get_config(arch)),
@@ -378,3 +382,190 @@ def rank_train(workers, out_dir):
         for k, v in flat_names(params_to_numpy(state.params)).items():
             out[f"{config}/params/{k}"] = v
     np.savez(os.path.join(out_dir, f"train_{workers.rank}.npz"), **out)
+
+
+# ---------------------------------------------------------------------------
+# The sharded step's two sides on a group of configurations, and the checks
+# that the four test files of the groups share.
+# ---------------------------------------------------------------------------
+
+# The reference's side: the configurations named in ``CONFIGS`` (comma
+# separated), 3 steps each, saved to ``OUT/train_jax.npz``.
+TRAIN_JAX_SIDE = r'''
+import os, sys
+sys.path.insert(0, os.environ["TESTS_DIR"])
+import dataclasses
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+import torch_dist_cases as C
+from repro.configs import get_config, smoke_config
+from repro.core.adaptive import BitSchedule, EtaSchedule
+from repro.core.criterion import CriterionConfig
+from repro.core.defense import DefenseConfig
+from repro.core.strategy import StrategyConfig, init_comm_state
+from repro.launch.train import (init_train_state, make_train_step,
+                                train_state_specs)
+from repro.models import init_params
+from repro.optim import sgd
+
+# jax.make_mesh gives Explicit axes on jax 0.9, under which the embedding
+# gather of models/stack.py raises; a Mesh of Auto axes runs the step
+mesh = Mesh(np.array(jax.devices()).reshape(C.TRAIN_W, 1), ("data", "model"))
+out = {}
+for config in os.environ["CONFIGS"].split(","):
+    twin = C.train_twin(config)
+    arch = C.TRAIN_ARCHS.get(twin, "stablelm-1.6b")
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype=jnp.float32,
+                              compute_dtype=jnp.float32)
+    abstract = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), cfg))
+    names = {jax.tree_util.keystr(p, simple=True, separator="."): l.shape
+             for p, l in jax.tree_util.tree_flatten_with_path(abstract)[0]}
+    params0 = C.numpy_params(names)
+    batch = jax.device_put({k: jnp.asarray(v, jnp.int32)
+                            for k, v in C.train_batch(cfg.vocab).items()},
+                           NamedSharding(mesh, P("data", None)))
+    sched = (BitSchedule(kind="radius", grid=C.GRID,
+                         thresholds=C.TRAIN_THRESHOLDS)
+             if twin == "packed_adaptive" else None)
+    extra = (dict(C.TRAIN_PARTICIPATION,
+                  defense=DefenseConfig(**C.TRAIN_DEFENSE))
+             if config in C.TRAIN_DEFENDED else {})
+    strat = StrategyConfig(**C.TRAIN_STRATEGY, bit_schedule=sched,
+                           criterion=CriterionConfig(**C.TRAIN_CRITERIA.get(
+                               twin, C.TRAIN_CRITERION)),
+                           eta_schedule=EtaSchedule(**C.TRAIN_ETA), **extra,
+                           **C.train_fields(config))
+    opt = sgd()
+    state = init_train_state(jax.random.PRNGKey(0), cfg, mesh, strat, opt,
+                             ("data",))
+    # the state around params0: lasg_ps and lasg_wk2 snapshot the
+    # initial iterate as theta_last, SVRG as its anchor
+    params = jax.tree.map(jnp.asarray, params0)
+    state = state._replace(params=params, opt_state=opt.init(params),
+                           comm=init_comm_state(params, C.TRAIN_W, strat))
+    # the state in and out of the step in one layout, the reference's
+    # (train_state_specs), so that the step compiles once: from
+    # single-device inputs it compiled again for its own outputs' layout
+    layout = jax.tree.map(lambda s: s.sharding, train_state_specs(
+        cfg, mesh, strat, opt, ("data",)))
+    state = jax.device_put(state, layout)
+    step = jax.jit(make_train_step(
+        cfg, mesh, strat, opt, lr=C.TRAIN_LR, worker_axes=("data",),
+        wire="float" if config.endswith("float") else "packed",
+        microbatch=C.TRAIN_MICROBATCH),
+        in_shardings=(layout, NamedSharding(mesh, P("data", None))),
+        out_shardings=(layout, NamedSharding(mesh, P())))
+    rec = {"loss": [], "uploads": [], "bits": [], "grad_sq": [],
+           "bits_spent": [], "rejects": [], "state_dtypes": []}
+    for _ in range(C.TRAIN_STEPS):
+        state, met = step(state, batch)
+        rec["state_dtypes"].append(",".join(sorted({
+            str(l.dtype) for l in jax.tree.leaves(state.comm.qhat)
+            + jax.tree.leaves(state.comm.server_agg)})))
+        rec["loss"].append(float(met.loss))
+        rec["uploads"].append(int(met.uploads))
+        rec["bits"].append(float(met.bits))
+        rec["grad_sq"].append(float(met.grad_sq))
+        rec["bits_spent"].append(np.asarray(state.comm.bits_spent))
+        rej = state.comm.defense.rejects
+        rec["rejects"].append(np.full(C.TRAIN_W, -1) if rej is None
+                              else np.asarray(rej))
+    for k, v in rec.items():
+        out[f"{config}/{k}"] = np.asarray(v)
+    out[f"{config}/total_uploads"] = np.asarray(state.comm.total_uploads)
+    for k, v in C.flat_names(jax.tree.map(np.asarray, state.params)).items():
+        out[f"{config}/params/{k}"] = v
+np.savez(os.path.join(os.environ["OUT"], "train_jax.npz"), **out)
+'''
+
+
+def run_train(out_dir: str, configs) -> tuple:
+    """Run ``configs`` through the reference's sharded step (one JAX
+    subprocess) and the port's (``TRAIN_W`` gloo ranks) at once; return
+    ``(want, got)``, the reference's npz and each rank's."""
+    jax_side = run_jax(TRAIN_JAX_SIDE, out_dir, CONFIGS=",".join(configs))
+    try:
+        spawn_ranks("rank_train", TRAIN_W, out_dir, tuple(configs))
+    finally:
+        finish(jax_side, "the reference's sharded step")
+    want = np.load(os.path.join(out_dir, "train_jax.npz"))
+    got = [np.load(os.path.join(out_dir, f"train_{m}.npz"))
+           for m in range(TRAIN_W)]
+    return want, got
+
+
+# leaves of each configuration's model: smoke stablelm unless named here
+TRAIN_LEAVES = {"moe_packed": 15, "hybrid_packed": 29}
+
+
+def params_of(npz, config) -> dict:
+    pre = f"{config}/params/"
+    return {k[len(pre):]: npz[k] for k in npz.files if k.startswith(pre)}
+
+
+def check_uploads_bits_and_widths(runs, config):
+    """Uploads and bits per step, each worker's cumulative bits (which fix
+    its widths) and the total uploads equal the reference's; step 1
+    uploads from every worker and a later step splits them."""
+    want, got = runs
+    ups = want[f"{config}/uploads"]
+    assert ups[0] == TRAIN_W
+    assert any(0 < u < TRAIN_W for u in ups[1:]), ups
+    for m, g in enumerate(got):
+        np.testing.assert_array_equal(g[f"{config}/uploads"], ups)
+        np.testing.assert_array_equal(g[f"{config}/bits"],
+                                      want[f"{config}/bits"])
+        np.testing.assert_array_equal(g[f"{config}/bits_spent"],
+                                      want[f"{config}/bits_spent"][:, m])
+        assert int(g[f"{config}/total_uploads"]) == int(
+            want[f"{config}/total_uploads"])
+
+
+def check_loss_and_params(runs, config):
+    """The loss to rtol 1e-4 and the parameters to rtol 1e-4, atol 5e-4
+    (``test_torch_train.py`` says why)."""
+    want, got = runs
+    np.testing.assert_allclose(got[0][f"{config}/loss"],
+                               want[f"{config}/loss"], rtol=1e-4)
+    w, g = params_of(want, config), params_of(got[0], config)
+    assert w.keys() == g.keys()
+    assert len(w) == TRAIN_LEAVES.get(config, 12)
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=5e-4,
+                                   err_msg=k)
+
+
+def check_state_dtypes(runs, config):
+    """``qhat`` and ``server_agg`` are bfloat16 after every step under
+    ``state_bf16``, float32 otherwise, on every rank and in the
+    reference."""
+    want, got = runs
+    dtype = "bfloat16" if config in TRAIN_BF16 else "float32"
+    np.testing.assert_array_equal(want[f"{config}/state_dtypes"],
+                                  [dtype] * TRAIN_STEPS)
+    for g in got:
+        np.testing.assert_array_equal(g[f"{config}/state_dtypes"],
+                                      [dtype] * TRAIN_STEPS)
+
+
+def check_wires_bitwise(got, float_cfg, packed_cfg, fields):
+    """On every rank the two configurations' parameters and ``fields``
+    are bitwise equal."""
+    for g in got:
+        f, p = params_of(g, float_cfg), params_of(g, packed_cfg)
+        assert f.keys() == p.keys()
+        for k in f:
+            np.testing.assert_array_equal(p[k], f[k], err_msg=k)
+        for field in fields:
+            np.testing.assert_array_equal(g[f"{packed_cfg}/{field}"],
+                                          g[f"{float_cfg}/{field}"])
+
+
+def check_every_rank_holds_the_same_params(runs, config):
+    _, got = runs
+    first = params_of(got[0], config)
+    for g in got[1:]:
+        for k, v in params_of(g, config).items():
+            np.testing.assert_array_equal(v, first[k], err_msg=k)
