@@ -1,31 +1,46 @@
-"""Wire-kernel micro-benchmark of the port, the kernel half of
-``benchmarks/bits_sweep.py``: the payload-only quantize + pack (kernel 3,
-``ops.quantize_pack``) and the receive side over W=4 payloads (kernel 8,
-``ops.dequant_acc``) at n = 2^20 for b in {4, 8}.
+"""Paper supp on the port: communication cost against the quantization
+width b, and the wire-kernel micro-benchmark, port of
+``benchmarks/bits_sweep.py``.
 
-    PYTHONPATH=src python -m benchmarks_torch.bits_sweep
+    PYTHONPATH=src python -m benchmarks_torch.bits_sweep \\
+        [--device cuda|cpu] [--wire reference|fused]
 
-Data come from a seeded ``torch.Generator`` on the card: the gradient is
-N(0, 1), qhat zero and R its infinity norm, as in the reference.  Each row
-is the mean of 20 launches timed with CUDA events after 3 warm-up
-launches, and records the device it ran on.  Each kernel's output is held
-bitwise against its plain version first.  The LAQ half of the reference
-(the bits sweep on the logistic-regression workers) is not ported yet:
-its data and models now exist in the port (``random.normal`` and
-``permutation``, ``data.synthetic.classification_dataset`` and
-``split_workers``, ``benchmarks_torch/common.py``), and it waits for its
-own change (ROADMAP queue 1).
+The sweep (:func:`run_sweep`): LAQ at b in ``SWEEP_BITS`` for
+``SWEEP_STEPS`` rounds on the logistic-regression workers of
+``common.make_dataset``, each row with its bits, rounds and final loss,
+and the claim that the bits grow with b.  ``--wire fused`` sends the
+quantize step through the CUDA wire kernels (``absmax`` and
+``quantize_pack_fused``) on the card.
 
-Without a CUDA device this exits non-zero: no number here is taken on the
-CPU.
+The kernel rows (:func:`run_kernels`, on the card only): the payload-only
+quantize + pack (kernel 3, ``ops.quantize_pack``) and the receive side
+over W=4 payloads (kernel 8, ``ops.dequant_acc``) at n = 2^20 for b in
+{4, 8}.  Data come from a seeded ``torch.Generator`` on the card: the
+gradient is N(0, 1), qhat zero and R its infinity norm, as in the
+reference.  Each row is the mean of 20 launches timed with CUDA events
+after 3 warm-up launches, and records the device it ran on.  Each
+kernel's output is held bitwise against its plain version first.
+
+With ``--device cpu`` this runs the sweep only: no kernel time is taken
+on the CPU.  The card is the default device: without one, and without
+``--device cpu``, this exits non-zero.
 """
 from __future__ import annotations
 
-import json
 import sys
 
 import torch
 
+from repro_torch.core.simulated import run_gradient_based
+from repro_torch.core.strategy import StrategyConfig
+from repro_torch.device import resolve_device
+
+from .common import PAPER_CRITERION, logreg_init, logreg_loss, make_dataset
+from .tables import table_main
+
+SWEEP_BITS = (2, 4, 8)
+SWEEP_STEPS = 400
+SWEEP_ALPHA = 2.0
 N = 1 << 20
 W = 4
 TIMED, WARMUP = 20, 3
@@ -47,8 +62,47 @@ def time_ms(fn, iters: int = TIMED, warmup: int = WARMUP) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run(seed: int = 0) -> list:
-    """The benchmark's rows, one dict per kernel and width."""
+def run_sweep(out_rows, results, *, device="cuda", wire="reference",
+              traces=None):
+    """The bits sweep's rows into ``results``; returns its claim check.
+    ``traces``, when given, receives each width's :class:`RunResult`."""
+    dev = resolve_device(device)
+    traces = {} if traces is None else traces
+    workers, full = make_dataset(device=dev)
+    loss_fn = logreg_loss(full[0].shape[0])
+    sweep = {}
+    for b in SWEEP_BITS:
+        cfg = StrategyConfig(kind="laq", bits=b, criterion=PAPER_CRITERION,
+                             wire_backend=wire)
+        r = run_gradient_based(loss_fn, logreg_init(device=dev), workers,
+                               cfg, steps=SWEEP_STEPS, alpha=SWEEP_ALPHA,
+                               device=dev)
+        traces[f"bits_sweep/b{b}"] = r
+        sweep[b] = results[f"bits_sweep/b{b}"] = dict(
+            bits=float(r.cum_bits[-1]), rounds=int(r.cum_uploads[-1]),
+            final_loss=float(r.loss[-1]))
+        out_rows.append((f"bits_sweep_b{b}", sweep[b]["bits"],
+                         f"rounds={sweep[b]['rounds']};"
+                         f"loss={sweep[b]['final_loss']:.2e}"))
+    results["bits_sweep/claims"] = checks = {
+        "fewer bits per round with smaller b":
+            sweep[2]["bits"] < sweep[4]["bits"] < sweep[8]["bits"]}
+    return checks
+
+
+def run(out_rows, results, *, device="cuda", wire="reference", traces=None):
+    """The sweep, then on the card the kernel rows (keyed by their names in
+    ``results``); returns the sweep's claim check."""
+    checks = run_sweep(out_rows, results, device=device, wire=wire,
+                       traces=traces)
+    if resolve_device(device).type == "cuda":
+        for row in run_kernels():
+            results[f"bits_sweep/{row['name']}"] = row
+    return checks
+
+
+def run_kernels(seed: int = 0) -> list:
+    """The kernel rows, one dict per kernel and width."""
     from repro_torch.kernels import ops, ref
 
     if not torch.cuda.is_available():
@@ -84,14 +138,8 @@ def run(seed: int = 0) -> list:
     return rows
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("bits_sweep: torch.cuda.is_available() is False; this "
-              "benchmark runs on a CUDA device only", file=sys.stderr)
-        return 1
-    for row in run():
-        print(json.dumps(row))
-    return 0
+def main(argv=None) -> int:
+    return table_main("bits_sweep", run, argv)
 
 
 if __name__ == "__main__":

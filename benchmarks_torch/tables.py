@@ -1,5 +1,6 @@
-"""The command line shared by the paper-table modules
-(``table2_gradient``, ``table3_stochastic``)."""
+"""The command line shared by the paper's experiments on the port
+(``table2_gradient``, ``table3_stochastic``, ``convergence``,
+``bits_sweep``)."""
 from __future__ import annotations
 
 import argparse

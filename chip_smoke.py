@@ -12,7 +12,7 @@ CPU or to a plain version while a CUDA tensor is at hand):
 2. Hold each kernel against its plain PyTorch version on the card.
    ``absmax`` and ``quantize_pack_fused``: at the 12 leaf shapes of
    stablelm-1.6b, the 5 leaf shapes of phase 13's two models
-   (``TABLE_LEAVES``) at b = 4 and 8, a length that is not a multiple of
+   (``TABLE_LEAVES``) at b = 2, 4 and 8, a length that is not a multiple of
    8 or 4096, an unaligned operand, R == 0 and b in {1, 2, 4, 8}.
    ``quantize_pack_adaptive``: at those 17 leaf shapes for each width of
    the grid (2, 4, 8), the grid (2, 4) (4-bit lanes), a ragged length,
@@ -107,8 +107,9 @@ CPU or to a plain version while a CUDA tensor is at hand):
    lasg_wk2 + SVRG with bfloat16 state at 2 layers: the parameters must be
    bitwise equal between the two wires, and the uploads and bits equal
    step by step and on every rank.
-7. ``benchmarks_torch/bits_sweep.py``: kernels 3 and 8 at n = 2^20, b in
-   {4, 8}, its rows printed.
+7. The kernel rows of ``benchmarks_torch/bits_sweep.py``
+   (``run_kernels``): kernels 3 and 8 at n = 2^20, b in {4, 8}, its rows
+   printed.
 8. Stochastic rounds at stablelm-1.6b's published widths, as phase 4 but
    with W=4 workers of 4 x 512 tokens and ``AccumulatingSource(batch=2,
    accum=2, seed=0)``, 3 rounds each: SLAQ (rule 7a, b=8) at 24 layers,
@@ -216,13 +217,27 @@ CPU or to a plain version while a CUDA tensor is at hand):
     fixed.  SSGD's support is a knife edge on the gradients (ROADMAP
     queue 3): its bits and loss are held to ``SSGD_RTOL``.  All nine
     claim checks must hold.  Each model's rows of each table run in a process
-    of their own (``chip_smoke.py --paper-table TABLE MODEL OUT``), the
+    of their own (``chip_smoke.py --paper-run MODULE FUNCTION OUT``), the
     four at once: each is host-bound eager rounds on one card with little
     memory.  Kernels 1 and 2 are launched once per worker, leaf and round
     of QGD, LAQ and the NN's SLAQ: in Table 2 16,000 times each on the
     logistic model and 40,000 on the NN, in Table 3 12,000 on the NN (the
     logistic SLAQ's b=3 is off the fused wire's grid and runs on the
     reference wire, as in the reference).
+
+14. The paper's convergence study (``benchmarks_torch/convergence.py``:
+    GD / QGD / LAG / LAQ at b = 4, 600 rounds, and LAQ on non-i.i.d.
+    shards, 400) and the LAQ half of ``benchmarks_torch/bits_sweep.py``
+    (``run_sweep``: LAQ at b = 2, 4 and 8, 400 rounds each) at full size
+    on the card with the fused wire, each in a process of its own, as in
+    phase 13, the two at once.  Every run's final uploads and bits must
+    equal ``JAX_STUDIES``, the JAX modules' on the CPU, and its final loss
+    be within ``LOSS_RTOL``; the four fitted slopes and LAQ's
+    quantization-error decay ratio within ``SLOPE_RTOL`` and
+    ``DECAY_RTOL`` of ``JAX_FIT``; all five claim checks must hold.
+    Kernels 1 and 2 are launched once per worker and round of QGD and
+    every LAQ run: 16,000 times each in the convergence study and 12,000
+    in the sweep.
 
 Phase 3 also draws ``random.normal`` and ``random.permutation`` (at a
 size that takes two shuffle rounds) on the card and on the CPU, in both
@@ -321,6 +336,7 @@ MAMBA_DECODE_ATOL = 1e-4      # float32 decode vs forward (12b, 12c)
 # NN's w1, b1, w2, b2
 TABLE_LEAVES = (("logistic w", (10, 784)), ("nn w1", (784, 200)),
                 ("nn b1", (200,)), ("nn w2", (200, 10)), ("nn b2", (10,)))
+TABLE_MODULES = {"table2": "table2_gradient", "table3": "table3_stochastic"}
 # phase 13: (iterations, rounds, bits, final loss) of each row of the JAX
 # modules benchmarks/table2_gradient.py and table3_stochastic.py, run on
 # the CPU (jax 0.9.0, JAX_PLATFORMS=cpu)
@@ -342,7 +358,29 @@ JAX_TABLES = {
     "table3/nn/ssgd": (300, 3000, 2327410688, 0.025148112),
     "table3/nn/slaq": (300, 563, 716199232, 0.024632217),
 }
-LOSS_RTOL = 1e-5              # final loss, card vs JAX (phase 13)
+# phase 14: (final cum_uploads, cum_bits, loss) of each run of the JAX
+# modules benchmarks/convergence.py and bits_sweep.py (the LAQ sweep at its
+# settings), and the four slopes and the decay ratio of the first, run on
+# the CPU (jax 0.9.0, JAX_PLATFORMS=cpu; tests/paper_studies_probe.py)
+JAX_STUDIES = {
+    "convergence/gd": (6000, 1505280000, 0.014848352409899235),
+    "convergence/qgd": (6000, 188352000, 0.01484876498579979),
+    "convergence/lag": (90, 22579200, 0.014791985973715782),
+    "convergence/laq": (85, 2668320, 0.014944987371563911),
+    "convergence/heterogeneous_laq": (69, 2166048, 0.01649072766304016),
+    "bits_sweep/b2": (40, 628480, 2.4846103191375732),
+    "bits_sweep/b4": (65, 2040480, 0.015023739077150822),
+    "bits_sweep/b8": (70, 4392640, 0.014831856824457645),
+}
+JAX_FIT = {"gd": -0.011920970470387416, "qgd": -0.011917001488059051,
+           "lag": -0.012673458821750373, "laq": -0.009838528788480136,
+           "decay_ratio": 0.001417334794173362}
+# the port's CPU runs of both wires against these: slopes within 4.3e-6,
+# the decay ratio within 2.9e-5 (it averages LAQ's radii, which a code on
+# a rounding boundary moves by a grid step: LAQ's within 5.2e-4 per round)
+SLOPE_RTOL = 1e-4
+DECAY_RTOL = 1e-3
+LOSS_RTOL = 1e-5              # final loss, card vs JAX (phases 13, 14)
 SSGD_RTOL = 1e-4              # SSGD's bits and loss (phase 13; ROADMAP queue 3)
 
 
@@ -404,7 +442,7 @@ def _moments_close(label, got, want, nan_ok=False) -> float:
 
 def check_kernels(leaf_shapes, torch, ops, ref):
     """Phase 2, kernels 1 and 2: bitwise checks at every main-path shape
-    (``leaf_shapes`` at b=8, ``TABLE_LEAVES`` at b=4 and 8) and the edge
+    (``leaf_shapes`` at b=8, ``TABLE_LEAVES`` at b=2, 4 and 8) and the edge
     cases; returns the largest absolute error of each kernel's
     outputs."""
     gen = torch.Generator(device="cuda")
@@ -435,7 +473,7 @@ def check_kernels(leaf_shapes, torch, ops, ref):
         del g, qh
     for name, shape in TABLE_LEAVES:
         g, qh = _pair(torch, gen, math.prod(shape))
-        for bits in (4, 8):
+        for bits in (2, 4, 8):
             one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape), bits)
     g, qh = _pair(torch, gen, 3 * 4096 + 1239)
     one("ragged length", g, qh, 8)
@@ -1778,7 +1816,7 @@ def run_bits_sweep(torch, ops):
     from benchmarks_torch import bits_sweep
     for name in ("quantize_pack", "dequant_acc"):
         getattr(ops, name).launches = 0
-    rows = bits_sweep.run()
+    rows = bits_sweep.run_kernels()
     torch.cuda.synchronize()
     launches = {name: getattr(ops, name).launches
                 for name in ("quantize_pack", "dequant_acc")}
@@ -2438,39 +2476,40 @@ def _same_bits(torch, a, b) -> bool:
             and torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)))
 
 
-def _paper_table(table, model, path):
-    """Phase 13, one model's rows of one table in a process of its own:
-    ``table`` ("table2" or "table3"), ``model`` ("logistic" or "nn"), at
-    full size on the card with the fused wire, the launch counters zeroed
-    just before and read just after; writes the rows (each also read at
-    the JAX run's iteration index), the launches and the seconds, or the
-    error, to the JSON file ``path``.  Returns the process's exit code."""
+def _paper_run(module, function, path):
+    """One run of phases 13 and 14 in a process of its own:
+    ``benchmarks_torch.<module>.<function>`` at full size on the card with
+    the fused wire, the launch counters zeroed just before and read just
+    after; writes its rows, what it returns (the claim checks, or None),
+    each run's per-round uploads and bits and its final loss, the
+    launches and the seconds, or the error, to the JSON file ``path``.
+    Returns the process's exit code."""
     try:
         root = os.path.dirname(os.path.abspath(__file__))
         sys.path[:0] = [os.path.join(root, "src"), root]
+        import importlib
+
         import torch
         from repro_torch.kernels import ops
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        mod = _table_module(table)
+        run = getattr(importlib.import_module(f"benchmarks_torch.{module}"),
+                      function)
         for name in KERNELS:
             getattr(ops, name).launches = 0
         results, traces = {}, {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mod.MODELS[model]([], results, device="cuda", wire="fused",
-                          traces=traces)
+        checks = run([], results, device="cuda", wire="fused", traces=traces)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: getattr(ops, k).launches for k in KERNELS}
-        rows = {}
-        for row, r in traces.items():
-            it = JAX_TABLES[row][0]
-            rows[row] = dict(results[row],
-                             rounds_at_jax_it=int(r.cum_uploads[it - 1]),
-                             bits_at_jax_it=float(r.cum_bits[it - 1]),
-                             final_loss=float(r.loss[-1]))
-        _report(path, dict(launches=launches, seconds=seconds, rows=rows))
+        runs = {k: dict(cum_uploads=r.cum_uploads.tolist(),
+                        cum_bits=r.cum_bits.tolist(),
+                        final_loss=float(r.loss[-1]))
+                for k, r in traces.items()}
+        _report(path, dict(launches=launches, seconds=seconds,
+                           results=results, checks=checks, runs=runs))
         return 0
     except BaseException:
         import traceback
@@ -2480,9 +2519,7 @@ def _paper_table(table, model, path):
 
 def _table_module(table):
     import importlib
-    return importlib.import_module(
-        {"table2": "benchmarks_torch.table2_gradient",
-         "table3": "benchmarks_torch.table3_stochastic"}[table])
+    return importlib.import_module(f"benchmarks_torch.{TABLE_MODULES[table]}")
 
 
 def paper_tables(torch):
@@ -2522,7 +2559,8 @@ def paper_tables(torch):
     }
     t0 = time.perf_counter()
     out = dict(zip(want_launches, _run_children(
-        [["--paper-table", *tm] for tm in want_launches], "phase 13")))
+        [["--paper-run", TABLE_MODULES[table], f"run_{model}"]
+         for table, model in want_launches], "phase 13")))
     wall = time.perf_counter() - t0
     launches, rows, results = {}, {}, {}
     for (table, model), res in out.items():
@@ -2531,14 +2569,15 @@ def paper_tables(torch):
                         {"absmax": n, "quantize_pack_fused": n})
         if n:
             launches[f"{table}_{model}"] = res["launches"]
-        results.update(res["rows"])
-        for row, got in res["rows"].items():
+        results.update(res["results"])
+        for row, run in res["runs"].items():
+            got = dict(res["results"][row], final_loss=run["final_loss"])
             it, rounds, bits, loss = JAX_TABLES[row]
             if row.startswith("table2/logistic/"):
                 # at the JAX iteration index: the card's own index is set
                 # by a 1e-6 loss residual, which float ulps can move
-                got_rounds, got_bits = (got["rounds_at_jax_it"],
-                                        got["bits_at_jax_it"])
+                got_rounds, got_bits = (run["cum_uploads"][it - 1],
+                                        run["cum_bits"][it - 1])
             else:
                 got_rounds, got_bits = got["rounds"], got["bits"]
             if got_rounds != rounds:
@@ -2575,6 +2614,72 @@ def paper_tables(torch):
             raise AssertionError(f"phase 13 {table}: claims failed {failed}")
         log(f"  ok {table}: the {len(checks)} claims hold")
     log(f"  ok phase 13: the four runs in {wall:.1f} s, at once")
+    return launches, rows
+
+
+def paper_studies():
+    """Phase 14: the convergence study and the bits sweep's LAQ half at
+    full size on the card with the fused wire, each in a process of its
+    own, the two at once.  Every run's final uploads and bits must equal
+    ``JAX_STUDIES``, its final loss within ``LOSS_RTOL``; the slopes and
+    the decay ratio within ``SLOPE_RTOL`` and ``DECAY_RTOL`` of
+    ``JAX_FIT``; every claim must hold.  All processes have exited, or
+    been killed and reaped, when this returns.  Returns ``(launches by
+    study, rows)``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from benchmarks_torch import bits_sweep, common, convergence
+    W = common.M_WORKERS
+    # one absmax and one quantize_pack_fused per worker and round of QGD
+    # and LAQ (1 leaf), of the heterogeneous LAQ and of each width's LAQ
+    want_launches = {
+        "convergence": W * (2 * convergence.STEPS + convergence.STEPS_HET),
+        "bits_sweep_laq": W * len(bits_sweep.SWEEP_BITS)
+        * bits_sweep.SWEEP_STEPS,
+    }
+    t0 = time.perf_counter()
+    out = dict(zip(want_launches, _run_children(
+        [["--paper-run", "convergence", "run"],
+         ["--paper-run", "bits_sweep", "run_sweep"]], "phase 14")))
+    wall = time.perf_counter() - t0
+    launches, rows = {}, {}
+    for path, res in out.items():
+        n = want_launches[path]
+        expect_launches(path, res["launches"],
+                        {"absmax": n, "quantize_pack_fused": n})
+        launches[path] = res["launches"]
+        for run, got in res["runs"].items():
+            uploads, bits, loss = (got["cum_uploads"][-1], got["cum_bits"][-1],
+                                   got["final_loss"])
+            want = JAX_STUDIES[run]
+            if (uploads, bits) != want[:2]:
+                raise AssertionError(f"phase 14 {run}: uploads, bits "
+                                     f"{uploads}, {bits:.0f}; JAX {want[:2]}")
+            if not abs(loss - want[2]) <= LOSS_RTOL * want[2]:
+                raise AssertionError(f"phase 14 {run}: final loss {loss!r}, "
+                                     f"JAX {want[2]!r} (rtol {LOSS_RTOL})")
+            rows[run] = dict(uploads=uploads, bits=bits, final_loss=loss,
+                             jax_final_loss=want[2])
+            log(f"  ok {run}: uploads {uploads} bits {bits:.0f} (JAX's), "
+                f"final loss {loss!r} (JAX {want[2]!r})")
+        failed = [c for c, ok in res["checks"].items() if not ok]
+        if failed:
+            raise AssertionError(f"phase 14 {path}: claims failed {failed}")
+        log(f"  ok {path}: {res['seconds']:.1f} s on the card, launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }; claims "
+            f"hold: {sorted(res['checks'])}")
+    results = out["convergence"]["results"]
+    fit = {k: results[f"convergence/{k}"]["rate_log_slope"]
+           for k in convergence.KINDS}
+    fit["decay_ratio"] = results["convergence/quant_error_decay"]["ratio"]
+    for k, got in fit.items():
+        want = JAX_FIT[k]
+        rtol = DECAY_RTOL if k == "decay_ratio" else SLOPE_RTOL
+        if not abs(got - want) <= rtol * abs(want):
+            raise AssertionError(f"phase 14 {k}: {got!r}, JAX {want!r} "
+                                 f"(rtol {rtol})")
+        rows[k] = dict(value=got, jax_value=want)
+    log(f"  ok slopes and decay ratio {fit} (JAX {JAX_FIT})")
+    log(f"  ok phase 14: the two runs in {wall:.1f} s, at once")
     return launches, rows
 
 
@@ -2873,6 +2978,12 @@ def main() -> int:
     by_path.update(table_launches)
     log("  " + json.dumps({"paper_tables": table_rows}))
 
+    log("phase 14: the convergence study and the bits sweep at full size, "
+        "fused wire")
+    study_launches, study_rows = paper_studies()
+    by_path.update(study_launches)
+    log("  " + json.dumps({"paper_studies": study_rows}))
+
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {
         "absmax": "src/repro/kernels/quant_pack.py:82",
@@ -2916,6 +3027,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--exchange-rank"]:
         rank, port, path = sys.argv[2:5]
         sys.exit(_exchange_rank(int(rank), int(port), path))
-    if sys.argv[1:2] == ["--paper-table"]:
-        sys.exit(_paper_table(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--paper-run"]:
+        sys.exit(_paper_run(*sys.argv[2:5]))
     sys.exit(main())

@@ -109,8 +109,21 @@ def test_port_files_cover_the_new_modules():
                  "benchmarks_torch/common.py",
                  "benchmarks_torch/tables.py",
                  "benchmarks_torch/table2_gradient.py",
-                 "benchmarks_torch/table3_stochastic.py"):
+                 "benchmarks_torch/table3_stochastic.py",
+                 "benchmarks_torch/convergence.py"):
         assert want in names, want
+
+
+def test_convergence_refuses_a_missing_card(capsys):
+    """The convergence study runs on the card unless told ``--device
+    cpu``, as the paper tables do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from benchmarks_torch import convergence
+    assert convergence.main([]) == 1
+    assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="cuda"):
+        convergence.run([], {})
 
 
 def test_moe_entry_points_refuse_a_missing_card():
@@ -206,8 +219,10 @@ def test_benchmark_and_chip_script_refuse_a_missing_card():
 
     from benchmarks_torch import bits_sweep
     with pytest.raises(RuntimeError, match="CUDA"):
-        bits_sweep.run()
-    assert bits_sweep.main() == 1
+        bits_sweep.run_kernels()
+    with pytest.raises(RuntimeError, match="cuda"):
+        bits_sweep.run([], {})
+    assert bits_sweep.main([]) == 1
     spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
                                                   ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
