@@ -12,6 +12,7 @@ writes that product.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import random
@@ -90,6 +91,21 @@ def _accuracy(logits, Y) -> float:
     ``f32(1 / N)``."""
     hits = (torch.argmax(logits, -1) == torch.argmax(Y, -1)).to(F32).sum()
     return float(hits * _inv(Y.shape[0]))
+
+
+def first_reach(result, target: float):
+    """``(cum_uploads[k], cum_bits[k])`` at the first *sustained* crossing
+    of ``target``: the earliest round k with ``loss[j] <= target`` for every
+    j >= k (None if there is none), port of
+    ``benchmarks/lasg_frontier.py`` ``first_reach``.  The first entry is
+    the cumulative upload count at that round, not a round index."""
+    loss = np.asarray(result.loss)
+    trailing_max = np.maximum.accumulate(loss[::-1])[::-1]
+    reached = trailing_max <= target
+    if not reached.any():
+        return None
+    k = int(np.argmax(reached))
+    return int(result.cum_uploads[k]), float(result.cum_bits[k])
 
 
 @torch.no_grad()

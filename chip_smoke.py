@@ -14,13 +14,16 @@ CPU or to a plain version while a CUDA tensor is at hand):
    stablelm-1.6b, the 5 leaf shapes of phase 13's two models
    (``TABLE_LEAVES``) at b = 2, 4 and 8, a length that is not a multiple of
    8 or 4096, an unaligned operand, R == 0 and b in {1, 2, 4, 8}.
-   ``quantize_pack_adaptive``: at those 17 leaf shapes for each width of
+   Phase 15's shapes: the regression's w (50,) at b = 2, 4 and 8, the
+   logistic w also at b = 1.
+   ``quantize_pack_adaptive``: at those 18 leaf shapes for each width of
    the grid (2, 4, 8), the grid (2, 4) (4-bit lanes), a ragged length,
    R == 0 and a NaN input; a pinned width must equal
    ``quantize_pack_fused``.
    ``sparse_quantize_pack``: at k = 41,105,920 survivors (5% of
    stablelm-1.6b at the EF path's 8 layers, the k that path gives it),
    k = 82,213,376 (5% at 24 layers) and a ragged k, b in {1, 2, 4, 8},
+   ef_frontier's top 196 of 7,840 at b = 1 and 2,
    lo == hi and lo far below the grid step.  R, codes, packed bytes, delta/deq and q_new must
    be bitwise equal; the moments agree to rtol 1e-5 (the kernel sums in
    float64 per thread, the plain version in float32).  Time each kernel,
@@ -217,10 +220,11 @@ CPU or to a plain version while a CUDA tensor is at hand):
     fixed.  SSGD's support is a knife edge on the gradients (ROADMAP
     queue 3): its bits and loss are held to ``SSGD_RTOL``.  All nine
     claim checks must hold.  Each model's rows of each table run in a process
-    of their own (``chip_smoke.py --paper-run MODULE FUNCTION OUT``), the
-    four at once: each is host-bound eager rounds on one card with little
-    memory.  Kernels 1 and 2 are launched once per worker, leaf and round
-    of QGD, LAQ and the NN's SLAQ: in Table 2 16,000 times each on the
+    of their own (``chip_smoke.py --paper-run MODULE FUNCTION OUT``), and
+    the processes of phases 13, 14 and 15, eight, all at once: each is
+    host-bound eager rounds on one card with little memory.  Kernels 1
+    and 2 are launched once per worker, leaf and round of QGD, LAQ and
+    the NN's SLAQ: in Table 2 16,000 times each on the
     logistic model and 40,000 on the NN, in Table 3 12,000 on the NN (the
     logistic SLAQ's b=3 is off the fused wire's grid and runs on the
     reference wire, as in the reference).
@@ -230,7 +234,7 @@ CPU or to a plain version while a CUDA tensor is at hand):
     shards, 400) and the LAQ half of ``benchmarks_torch/bits_sweep.py``
     (``run_sweep``: LAQ at b = 2, 4 and 8, 400 rounds each) at full size
     on the card with the fused wire, each in a process of its own, as in
-    phase 13, the two at once.  Every run's final uploads and bits must
+    phase 13.  Every run's final uploads and bits must
     equal ``JAX_STUDIES``, the JAX modules' on the CPU, and its final loss
     be within ``LOSS_RTOL``; the four fitted slopes and LAQ's
     quantization-error decay ratio within ``SLOPE_RTOL`` and
@@ -238,6 +242,27 @@ CPU or to a plain version while a CUDA tensor is at hand):
     Kernels 1 and 2 are launched once per worker and round of QGD and
     every LAQ run: 16,000 times each in the convergence study and 12,000
     in the sweep.
+
+15. The A-LAQ width sweep (``benchmarks_torch/adaptive_sweep.py``: LAQ at
+    b = 2, 4 and 8, the radius schedule and the budgeted controller on
+    the grid (2, 4, 8), ridge regression at p = 50 over 10 workers, 400
+    rounds each) and the error-feedback frontier
+    (``benchmarks_torch/ef_frontier.py``: LAQ at b = 4, 2 and 1 and
+    EF-top-k at b = 2 and 1 with k = 196 of the logistic model's 7,840,
+    400 rounds each) at full size on the card with the fused wire, each in
+    a process of its own, as in phase 13.  Every run's final uploads and
+    bits must equal ``JAX_FRONTIERS``, the JAX modules' on the CPU (the
+    regression's data drawn on the card first, bitwise equal to the CPU
+    draw), its
+    final loss be within ``LOSS_RTOL`` and its rows' entries that count
+    bits or rounds equal ``JAX_FRONTIER_ROWS``; the EF-top-k runs, which
+    part from JAX's on a skip decision that the gradient's reduction
+    order moves (ROADMAP queue 3), within ``EF_RTOL`` and
+    ``EF_LOSS_RTOL``.  The nine claims must be the reference's (two A-LAQ
+    claims fail in the reference too).  Launches, one per worker and
+    round: absmax 20,000 and 12,000, quantize_pack_fused 12,000 and
+    12,000, quantize_pack_adaptive 8,000 (its width mix printed), and
+    sparse_quantize_pack 8,000.
 
 Phase 3 also draws ``random.normal`` and ``random.permutation`` (at a
 size that takes two shuffle rounds) on the card and on the CPU, in both
@@ -380,8 +405,63 @@ JAX_FIT = {"gd": -0.011920970470387416, "qgd": -0.011917001488059051,
 # a rounding boundary moves by a grid step: LAQ's within 5.2e-4 per round)
 SLOPE_RTOL = 1e-4
 DECAY_RTOL = 1e-3
-LOSS_RTOL = 1e-5              # final loss, card vs JAX (phases 13, 14)
+LOSS_RTOL = 1e-5              # final loss, card vs JAX (phases 13-15)
 SSGD_RTOL = 1e-4              # SSGD's bits and loss (phase 13; ROADMAP queue 3)
+# phase 15's leaves in phase 2: the regression's w at the fixed widths
+# (kernels 1 and 2) and at each width of the grid (kernel 4); with the
+# logistic w of TABLE_LEAVES at b=1 (plain_b1) and ef_frontier's survivors
+# (kernel 7 at k = 196, b = 1 and 2)
+REGRESSION_LEAF = ("regression w", (50,))
+FRONTIER_MODULES = ("adaptive_sweep", "ef_frontier")
+# phase 15: (final cum_uploads, cum_bits, loss) of each run of the JAX
+# modules benchmarks/adaptive_sweep.py and ef_frontier.py, their rows'
+# entries that count bits or rounds and their claims in order, run on the
+# CPU (jax 0.9.0, JAX_PLATFORMS=cpu; tests/frontiers_probe.py).  The
+# reference's own first two A-LAQ claims fail (ROADMAP, reference-side
+# discrepancies): the port is held to the reference's verdicts.
+JAX_FRONTIERS = {
+    "adaptive_sweep/fixed_b2": (40, 5280, 0.010269160382449627),
+    "adaptive_sweep/fixed_b4": (52, 12064, 0.0061525385826826096),
+    "adaptive_sweep/fixed_b8": (52, 22464, 0.00621040677651763),
+    "adaptive_sweep/adaptive_radius": (50, 8900, 0.006735560949891806),
+    "adaptive_sweep/adaptive_budget": (50, 8900, 0.006735560949891806),
+    "ef_frontier/plain_b4": (65, 2040480, 0.015023739077150822),
+    "ef_frontier/plain_b2": (40, 628480, 2.4846103191375732),
+    "ef_frontier/plain_b1": (40, 314880, 24.196758270263672),
+    "ef_frontier/ef_topk_b2": (467, 1402868, 0.019921084865927696),
+    "ef_frontier/ef_topk_b1": (451, 1266408, 0.020013269037008286),
+}
+JAX_FRONTIER_ROWS = {
+    "adaptive_sweep/fixed_b2": dict(bits_to_fixed4_loss=None,
+                                    mean_width_late=0.0),
+    "adaptive_sweep/fixed_b4": dict(bits_to_fixed4_loss=12064.0,
+                                    mean_width_late=0.6399999856948853),
+    "adaptive_sweep/fixed_b8": dict(bits_to_fixed4_loss=None,
+                                    mean_width_late=1.600000023841858),
+    "adaptive_sweep/adaptive_radius": dict(
+        bits_to_fixed4_loss=None, mean_width_late=0.36000001430511475),
+    "adaptive_sweep/adaptive_budget": dict(
+        bits_to_fixed4_loss=None, mean_width_late=0.36000001430511475),
+    "ef_frontier/plain_b4": dict(rounds_to_target=30,
+                                 bits_to_target=941760.0),
+    "ef_frontier/plain_b2": dict(rounds_to_target=None, bits_to_target=None),
+    "ef_frontier/plain_b1": dict(rounds_to_target=None, bits_to_target=None),
+    "ef_frontier/ef_topk_b2": dict(rounds_to_target=291,
+                                   bits_to_target=874164.0),
+    "ef_frontier/ef_topk_b1": dict(rounds_to_target=363,
+                                   bits_to_target=1019304.0),
+}
+JAX_FRONTIER_TARGET = 0.026291543385013938   # ef_frontier's target loss
+JAX_FRONTIER_CLAIMS = {"adaptive_sweep": (False, False, True, True),
+                       "ef_frontier": (True, True, True, True, True)}
+# the EF-top-k runs part from JAX's on a skip decision that the gradient's
+# float32 reduction order moves (ROADMAP queue 3): their uploads, bits and
+# rows to EF_RTOL, their loss to EF_LOSS_RTOL.  Four orders of the same
+# gradient on the CPU (JAX's, the port's, float64, the examples reversed)
+# spread them by up to 4.5% (uploads and bits) and 0.4% (loss, bits to
+# the target)
+EF_RTOL = 0.1
+EF_LOSS_RTOL = 1e-2
 
 
 def log(msg):
@@ -442,9 +522,9 @@ def _moments_close(label, got, want, nan_ok=False) -> float:
 
 def check_kernels(leaf_shapes, torch, ops, ref):
     """Phase 2, kernels 1 and 2: bitwise checks at every main-path shape
-    (``leaf_shapes`` at b=8, ``TABLE_LEAVES`` at b=2, 4 and 8) and the edge
-    cases; returns the largest absolute error of each kernel's
-    outputs."""
+    (``leaf_shapes`` at b=8, ``TABLE_LEAVES`` and ``REGRESSION_LEAF`` at
+    b=2, 4 and 8, the logistic w also at b=1) and the edge cases; returns
+    the largest absolute error of each kernel's outputs."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     err = {"absmax": 0.0, "quantize_pack_fused": 0.0}
@@ -471,9 +551,10 @@ def check_kernels(leaf_shapes, torch, ops, ref):
         g, qh = _pair(torch, gen, n)
         one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape), 8)
         del g, qh
-    for name, shape in TABLE_LEAVES:
+    for name, shape in TABLE_LEAVES + (REGRESSION_LEAF,):
         g, qh = _pair(torch, gen, math.prod(shape))
-        for bits in (2, 4, 8):
+        # ef_frontier's plain_b1 runs the logistic w at b=1
+        for bits in (1, 2, 4, 8) if name == "logistic w" else (2, 4, 8):
             one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape), bits)
     g, qh = _pair(torch, gen, 3 * 4096 + 1239)
     one("ragged length", g, qh, 8)
@@ -540,9 +621,9 @@ def check_adaptive_kernel(leaf_shapes, torch, ops, ref):
 
 def check_sparse_kernel(ef_k, torch, ops, ref):
     """Phase 2, kernel 7: survivors at the EF path's k, at SPARSE_K and at a
-    ragged k for each width, lo == hi, and lo far below the grid step; all
-    bitwise.  Returns the largest absolute difference of deq (0 when
-    bitwise)."""
+    ragged k for each width, ef_frontier's top-k survivors at b = 1 and 2,
+    lo == hi, and lo far below the grid step; all bitwise.  Returns the
+    largest absolute difference of deq (0 when bitwise)."""
     from repro_torch.core.compressors import sparse_grid
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -566,6 +647,14 @@ def check_sparse_kernel(ef_k, torch, ops, ref):
         for bits in (1, 2, 4, 8):
             one(f"survivors k={k}", v, bits)
         del v
+    # ef_frontier's EF-top-k: the top k of a logistic-w innovation
+    from benchmarks_torch import ef_frontier
+    from repro_torch.core.compressors import select_support, static_k
+    p = math.prod(dict(TABLE_LEAVES)["logistic w"])
+    d = torch.randn(p, generator=gen, device="cuda") * 1e-3
+    sel = select_support("topk", d, static_k(ef_frontier.EF_K, p))
+    for bits in (1, 2):
+        one(f"ef_frontier survivors of p={p}", sel.vals, bits)
     v = torch.randn(1_000_003, generator=gen, device="cuda")
     same = torch.where(v < 0, -1.0, 1.0) * 2e-3
     lo = torch.tensor(2e-3, device="cuda")
@@ -2477,12 +2566,13 @@ def _same_bits(torch, a, b) -> bool:
 
 
 def _paper_run(module, function, path):
-    """One run of phases 13 and 14 in a process of its own:
+    """One run of phases 13, 14 and 15 in a process of its own:
     ``benchmarks_torch.<module>.<function>`` at full size on the card with
     the fused wire, the launch counters zeroed just before and read just
     after; writes its rows, what it returns (the claim checks, or None),
     each run's per-round uploads and bits and its final loss, the
-    launches and the seconds, or the error, to the JSON file ``path``.
+    launches (kernel 4's also by width) and the seconds, or the error, to
+    the JSON file ``path``.
     Returns the process's exit code."""
     try:
         root = os.path.dirname(os.path.abspath(__file__))
@@ -2497,6 +2587,7 @@ def _paper_run(module, function, path):
                       function)
         for name in KERNELS:
             getattr(ops, name).launches = 0
+        ops.quantize_pack_adaptive.launches_by_width = {}
         results, traces = {}, {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2504,6 +2595,9 @@ def _paper_run(module, function, path):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: getattr(ops, k).launches for k in KERNELS}
+        launches["adaptive_by_width"] = {
+            str(b): n for b, n in sorted(
+                ops.quantize_pack_adaptive.launches_by_width.items())}
         runs = {k: dict(cum_uploads=r.cum_uploads.tolist(),
                         cum_bits=r.cum_bits.tolist(),
                         final_loss=float(r.loss[-1]))
@@ -2522,16 +2616,11 @@ def _table_module(table):
     return importlib.import_module(f"benchmarks_torch.{TABLE_MODULES[table]}")
 
 
-def paper_tables(torch):
-    """Phase 13: the data and the NN's weights drawn on the card, bitwise
-    equal to the CPU draw; then the paper's Tables 2 and 3 at full size on
-    the card with the fused wire, each model's rows of each table in a
-    process of its own, the four at once (each is host-bound: one card,
-    little memory).  All processes have exited, or been killed and
-    reaped, when this returns.  Returns ``(launches by table and model,
-    rows)``."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from benchmarks_torch import common
+def paper_data_check(torch):
+    """Phases 13 and 15, first: the data, the NN's weights and the
+    regression's data and true weights drawn on the card, bitwise equal
+    to the CPU draw."""
+    from benchmarks_torch import adaptive_sweep, common
 
     (cw, cf), (pw, pf) = (common.make_dataset(device=d)
                           for d in ("cuda", "cpu"))
@@ -2545,7 +2634,37 @@ def paper_tables(torch):
             raise AssertionError(f"phase 13: nn_init {k} differs card vs CPU")
     log(f"  ok dataset {tuple(cw[0].shape)} and nn_init bitwise equal on "
         f"card and CPU")
-    del cw, cf, ci
+    (_, _, cd, cws), (_, _, pd, pws) = (adaptive_sweep.regression_setup(
+        device=d) for d in ("cuda", "cpu"))
+    for a, b, name in zip(cd + (cws,), pd + (pws,), ("X", "y", "w_star")):
+        if a.device.type != "cuda" or not _same_bits(torch, a, b):
+            raise AssertionError(f"phase 15: regression {name} differs card "
+                                 "vs CPU")
+    log(f"  ok regression X {tuple(cd[0].shape)}, y and w_star bitwise equal "
+        f"on card and CPU")
+
+
+def paper_children() -> dict:
+    """The processes of phases 13, 14 and 15: ``{phase: {run: argv}}``.
+    Each is this script's ``--paper-run`` on one of the paper's
+    experiments; all of them run at once (each is host-bound: one card,
+    little memory)."""
+    return {
+        13: {(table, model): ["--paper-run", TABLE_MODULES[table],
+                              f"run_{model}"]
+             for table in TABLE_MODULES for model in ("logistic", "nn")},
+        14: {"convergence": ["--paper-run", "convergence", "run"],
+             "bits_sweep_laq": ["--paper-run", "bits_sweep", "run_sweep"]},
+        15: {m: ["--paper-run", m, "run"] for m in FRONTIER_MODULES},
+    }
+
+
+def paper_tables(out):
+    """Phase 13: the paper's Tables 2 and 3 at full size on the card with
+    the fused wire, each model's rows of each table in a process of its
+    own; ``out`` holds their results by ``(table, model)``.  Returns
+    ``(launches by table and model, rows)``."""
+    from benchmarks_torch import common
     W = common.M_WORKERS
     t2, t3 = _table_module("table2"), _table_module("table3")
     # one absmax and one quantize_pack_fused per worker, leaf and round of
@@ -2557,11 +2676,6 @@ def paper_tables(torch):
         ("table3", "logistic"): 0,
         ("table3", "nn"): W * t3.STEPS_NN * 4,
     }
-    t0 = time.perf_counter()
-    out = dict(zip(want_launches, _run_children(
-        [["--paper-run", TABLE_MODULES[table], f"run_{model}"]
-         for table, model in want_launches], "phase 13")))
-    wall = time.perf_counter() - t0
     launches, rows, results = {}, {}, {}
     for (table, model), res in out.items():
         n = want_launches[table, model]
@@ -2613,20 +2727,17 @@ def paper_tables(torch):
         if failed:
             raise AssertionError(f"phase 13 {table}: claims failed {failed}")
         log(f"  ok {table}: the {len(checks)} claims hold")
-    log(f"  ok phase 13: the four runs in {wall:.1f} s, at once")
     return launches, rows
 
 
-def paper_studies():
+def paper_studies(out):
     """Phase 14: the convergence study and the bits sweep's LAQ half at
     full size on the card with the fused wire, each in a process of its
-    own, the two at once.  Every run's final uploads and bits must equal
-    ``JAX_STUDIES``, its final loss within ``LOSS_RTOL``; the slopes and
-    the decay ratio within ``SLOPE_RTOL`` and ``DECAY_RTOL`` of
-    ``JAX_FIT``; every claim must hold.  All processes have exited, or
-    been killed and reaped, when this returns.  Returns ``(launches by
-    study, rows)``."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    own; ``out`` holds their results.  Every run's final uploads and bits
+    must equal ``JAX_STUDIES``, its final loss within ``LOSS_RTOL``; the
+    slopes and the decay ratio within ``SLOPE_RTOL`` and ``DECAY_RTOL`` of
+    ``JAX_FIT``; every claim must hold.  Returns ``(launches by study,
+    rows)``."""
     from benchmarks_torch import bits_sweep, common, convergence
     W = common.M_WORKERS
     # one absmax and one quantize_pack_fused per worker and round of QGD
@@ -2636,11 +2747,6 @@ def paper_studies():
         "bits_sweep_laq": W * len(bits_sweep.SWEEP_BITS)
         * bits_sweep.SWEEP_STEPS,
     }
-    t0 = time.perf_counter()
-    out = dict(zip(want_launches, _run_children(
-        [["--paper-run", "convergence", "run"],
-         ["--paper-run", "bits_sweep", "run_sweep"]], "phase 14")))
-    wall = time.perf_counter() - t0
     launches, rows = {}, {}
     for path, res in out.items():
         n = want_launches[path]
@@ -2679,7 +2785,83 @@ def paper_studies():
                                  f"(rtol {rtol})")
         rows[k] = dict(value=got, jax_value=want)
     log(f"  ok slopes and decay ratio {fit} (JAX {JAX_FIT})")
-    log(f"  ok phase 14: the two runs in {wall:.1f} s, at once")
+    return launches, rows
+
+
+def _close(got, want, rtol) -> bool:
+    """``got`` within ``rtol`` of ``want``, None only as None."""
+    if got is None or want is None:
+        return got is want
+    return abs(got - want) <= rtol * abs(want)
+
+
+def paper_frontiers(out):
+    """Phase 15: the A-LAQ width sweep and the error-feedback frontier at
+    full size on the card with the fused wire, each in a process of its
+    own; ``out`` holds their results by module.  Every run's final uploads
+    and bits must equal ``JAX_FRONTIERS`` and its rows' ``bits_to_*``,
+    ``rounds_to_target`` and ``mean_width_late`` entries
+    ``JAX_FRONTIER_ROWS``, its final loss within ``LOSS_RTOL``; the
+    EF-top-k runs' within ``EF_RTOL`` and ``EF_LOSS_RTOL`` (ROADMAP queue
+    3).  The claims must be the reference's.  Returns ``(launches by
+    module, rows)``."""
+    from benchmarks_torch import adaptive_sweep, common, ef_frontier
+    W = common.M_WORKERS
+    a, e = W * adaptive_sweep.STEPS, W * ef_frontier.STEPS
+    # one launch per worker, leaf (one) and round: absmax and kernel 2 on
+    # each fixed width, absmax and kernel 4 under each schedule, kernel 7
+    # alone on each EF-top-k run
+    want_launches = {
+        "adaptive_sweep": {"absmax": 5 * a, "quantize_pack_fused": 3 * a,
+                           "quantize_pack_adaptive": 2 * a},
+        "ef_frontier": {"absmax": 3 * e, "quantize_pack_fused": 3 * e,
+                        "sparse_quantize_pack": 2 * e},
+    }
+    launches, rows = {}, {}
+    for module, res in out.items():
+        expect_launches(module, res["launches"], want_launches[module])
+        launches[module] = res["launches"]
+        for run, got in res["runs"].items():
+            ef = "/ef_topk_" in run
+            uploads, bits, loss = (got["cum_uploads"][-1], got["cum_bits"][-1],
+                                   got["final_loss"])
+            want = JAX_FRONTIERS[run]
+            count_rtol = EF_RTOL if ef else 0.0
+            loss_rtol = EF_LOSS_RTOL if ef else LOSS_RTOL
+            if not (_close(uploads, want[0], count_rtol)
+                    and _close(bits, want[1], count_rtol)):
+                raise AssertionError(f"phase 15 {run}: uploads, bits "
+                                     f"{uploads}, {bits:.0f}; JAX {want[:2]} "
+                                     f"(rtol {count_rtol})")
+            if not _close(loss, want[2], loss_rtol):
+                raise AssertionError(f"phase 15 {run}: final loss {loss!r}, "
+                                     f"JAX {want[2]!r} (rtol {loss_rtol})")
+            row = {k: res["results"][run][k] for k in JAX_FRONTIER_ROWS[run]}
+            for k, v in JAX_FRONTIER_ROWS[run].items():
+                if not _close(row[k], v, count_rtol):
+                    raise AssertionError(f"phase 15 {run}: {k} {row[k]}, "
+                                         f"JAX {v} (rtol {count_rtol})")
+            rows[run] = dict(uploads=uploads, bits=bits, final_loss=loss,
+                             jax=want, **row)
+            log(f"  ok {run}: uploads {uploads} bits {bits:.0f} (JAX "
+                f"{want[0]}, {want[1]}), final loss {loss!r} (JAX "
+                f"{want[2]!r}), {row}")
+        claims = tuple(res["checks"].values())
+        if claims != JAX_FRONTIER_CLAIMS[module]:
+            raise AssertionError(f"phase 15 {module}: claims {res['checks']}"
+                                 f", JAX {JAX_FRONTIER_CLAIMS[module]}")
+        log(f"  ok {module}: {res['seconds']:.1f} s on the card, launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }; the "
+            f"claims are the reference's: {res['checks']}")
+    target = out["ef_frontier"]["results"]["ef_frontier/target"]["target_loss"]
+    if not _close(target, JAX_FRONTIER_TARGET, LOSS_RTOL):
+        raise AssertionError(f"phase 15: target loss {target!r}, JAX "
+                             f"{JAX_FRONTIER_TARGET!r}")
+    by_width = launches["adaptive_sweep"]["adaptive_by_width"]
+    if (sum(by_width.values()) != 2 * a
+            or not set(by_width) <= {"2", "4", "8"}):
+        raise AssertionError(f"phase 15: kernel 4's widths {by_width}")
+    log(f"  ok kernel 4's width mix over the two A-LAQ runs: {by_width}")
     return launches, rows
 
 
@@ -2697,8 +2879,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA device only", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "src"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.join(root, "src"), root]
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import static_k
     from repro_torch.kernels import ops, quant_pack, ref
@@ -2734,7 +2916,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     errs = check_kernels(shapes, torch, ops, ref)
     errs["quantize_pack_adaptive"] = check_adaptive_kernel(
-        shapes + list(TABLE_LEAVES), torch, ops, ref)
+        shapes + list(TABLE_LEAVES) + [REGRESSION_LEAF], torch, ops, ref)
     errs["sparse_quantize_pack"] = check_sparse_kernel(ef_k, torch, ops, ref)
     errs.update(check_codes_kernels(shapes, torch, ops, ref))
     errs["dequant_acc"] = check_dequant_kernel(shapes, torch, ops, ref)
@@ -2971,18 +3153,33 @@ def main() -> int:
         log("  " + json.dumps({f"{path}_train": train_row,
                                f"{path}_serve": serve_row}))
 
-    log("phase 13: the paper's Tables 2 and 3 at full size, fused wire")
+    log("phases 13-15: the paper's experiments at full size, fused wire, "
+        "each run in a process of its own, all at once")
     gc.collect()
     torch.cuda.empty_cache()
-    table_launches, table_rows = paper_tables(torch)
+    paper_data_check(torch)
+    flat = [(phase, run, argv) for phase, runs in paper_children().items()
+            for run, argv in runs.items()]
+    t0 = time.perf_counter()
+    res = _run_children([argv for _, _, argv in flat], "phases 13-15")
+    wall = time.perf_counter() - t0
+    out = {13: {}, 14: {}, 15: {}}
+    for (phase, run, _), r in zip(flat, res):
+        out[phase][run] = r
+    log("phase 13: the paper's Tables 2 and 3")
+    table_launches, table_rows = paper_tables(out[13])
     by_path.update(table_launches)
     log("  " + json.dumps({"paper_tables": table_rows}))
-
-    log("phase 14: the convergence study and the bits sweep at full size, "
-        "fused wire")
-    study_launches, study_rows = paper_studies()
+    log("phase 14: the convergence study and the bits sweep")
+    study_launches, study_rows = paper_studies(out[14])
     by_path.update(study_launches)
     log("  " + json.dumps({"paper_studies": study_rows}))
+    log("phase 15: the A-LAQ width sweep and the error-feedback frontier")
+    frontier_launches, frontier_rows = paper_frontiers(out[15])
+    by_path.update(frontier_launches)
+    log("  " + json.dumps({"paper_frontiers": frontier_rows}))
+    log(f"  ok phases 13-15: the {len(flat)} processes in {wall:.1f} s, at "
+        "once")
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {
@@ -3013,6 +3210,9 @@ def main() -> int:
     by_width = sorted(by_path["alaq"]["adaptive_by_width"].items())
     kernels[KERNELS.index("quantize_pack_adaptive")]["launches_by_width"] = {
         str(b): n for b, n in by_width}
+    kernels[KERNELS.index("quantize_pack_adaptive")][
+        "launches_by_width_adaptive_sweep"] = frontier_launches[
+            "adaptive_sweep"]["adaptive_by_width"]
     kernels[KERNELS.index("quantize_codes_adaptive")]["launches_by_width"] = {
         str(b): n for b, n in sorted(codes_by_width.items())}
     print(card)

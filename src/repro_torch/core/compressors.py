@@ -20,6 +20,8 @@ Bit-identity with the reference under jit:
   here does the same (:func:`repro_torch.core.quantize.fma_f32`).
 * rand-k keeps the k largest of p uniform scores drawn with the worker's
   key, ties to the lowest index, as top-k does.
+* The b=1 grid's mean ``sum(|v|) / k`` is XLA's CPU reduction
+  (:func:`xla_cpu_sum`) times ``f32(1 / k)``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from .quantize import fma_f32
 
 F32 = torch.float32
 COMPRESSORS = ("none", "topk", "randk")
+_REDUCE_WINDOW = 32     # XLA CPU's tree-reduction window
 
 
 def _flat(tree):
@@ -138,17 +141,39 @@ def scatter_selection(sel: SparseSelection, vals, p: int) -> torch.Tensor:
     return out
 
 
+def xla_cpu_sum(a: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of the 1-D ``a`` in the order of XLA's CPU backend
+    under jit (jax 0.9.0), on any device.  A reduction longer than 32 is
+    rewritten as a ``reduce-window`` of 32, the input padded by half the
+    missing length on each side, each window summed in order from 0, and
+    the partial sums reduced again; 32 or fewer are summed in order from 0.
+    The padding here is -0.0, which leaves every sum as it is."""
+    w = _REDUCE_WINDOW
+    while a.shape[0] > w:
+        n = a.shape[0]
+        pad = -(-n // w) * w - n
+        cols = torch.nn.functional.pad(a, (pad // 2, pad - pad // 2),
+                                       value=-0.0).reshape(-1, w)
+        a = torch.zeros(cols.shape[0], dtype=F32, device=a.device)
+        for j in range(w):
+            a = a + cols[:, j]
+    s = torch.zeros((), dtype=F32, device=a.device)
+    for x in a:
+        s = s + x
+    return s
+
+
 def sparse_grid(vals: torch.Tensor, bits: int):
     """``(lo, hi)``, the sign-magnitude grid's endpoints (float32 0-d, the
-    two wire sidecars): min and max of |v|, or both the mean |v| at b=1.
-    The mean reduces in torch's order, so at b=1 the endpoints agree with
-    the reference to float32 reduction accuracy, not bitwise."""
+    two wire sidecars): min and max of |v|, or both the mean |v| at b=1,
+    whose sum runs in XLA's order (:func:`xla_cpu_sum`) and whose division
+    by the constant k is a product with ``f32(1 / k)``, as under jit."""
     if vals.numel() == 0:
         z = torch.zeros((), dtype=F32, device=vals.device)
         return z, z
     a = vals.to(F32).abs()
     if bits == 1:
-        mu = a.mean()
+        mu = xla_cpu_sum(a) * float(torch.tensor(1.0 / a.numel(), dtype=F32))
         return mu, mu
     return a.amin(), a.amax()
 

@@ -121,14 +121,29 @@ def test_sparse_grid_matches_reference(bits):
         np.float32)
     lo, hi = tcomp.sparse_grid(torch.from_numpy(v), bits)
     wlo, whi = jax.jit(lambda x: jcomp.sparse_grid(x, bits))(v)
-    if bits == 1:        # a mean: float32 reduction order
-        np.testing.assert_allclose(lo.numpy(), wlo, rtol=1e-6)
-        assert lo.numpy() == hi.numpy()
-    else:
-        _eq(lo.numpy(), wlo)
-        _eq(hi.numpy(), whi)
+    _eq(lo.numpy(), wlo)
+    _eq(hi.numpy(), whi)
     z = tcomp.sparse_grid(torch.zeros(0), bits)
     assert float(z[0]) == float(z[1]) == 0.0
+
+
+@pytest.mark.parametrize("k", (1, 31, 32, 33, 196, 1025, 3001, 40000))
+def test_b1_grid_mean_is_xla_cpus_sum(k):
+    """The b=1 grid's mean |v| equals the jitted reference's bit for bit:
+    XLA's CPU reduction order (windows of 32, padded on both sides, the
+    partial sums reduced again) at lengths under, at and over one and two
+    windows, survivors spread over six decades, both vmapped over workers
+    (the engine's form) and alone."""
+    rng = np.random.default_rng(k)
+    v = (rng.standard_normal((3, k))
+         * np.exp(rng.uniform(-7, 7, (3, k)))).astype(np.float32)
+    want = jax.jit(jax.vmap(lambda x: jcomp.sparse_grid(x, 1)[0]))(v)
+    for m in range(3):
+        lo, hi = tcomp.sparse_grid(torch.from_numpy(v[m]), 1)
+        _eq(lo.numpy(), want[m])
+        _eq(hi.numpy(), want[m])
+    _eq(tcomp.xla_cpu_sum(torch.from_numpy(np.abs(v[0]))).numpy(),
+        jax.jit(jnp.sum)(np.abs(v[0])))
 
 
 @pytest.mark.parametrize("bits", (2, 4, 8))

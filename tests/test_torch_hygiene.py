@@ -110,7 +110,9 @@ def test_port_files_cover_the_new_modules():
                  "benchmarks_torch/tables.py",
                  "benchmarks_torch/table2_gradient.py",
                  "benchmarks_torch/table3_stochastic.py",
-                 "benchmarks_torch/convergence.py"):
+                 "benchmarks_torch/convergence.py",
+                 "benchmarks_torch/adaptive_sweep.py",
+                 "benchmarks_torch/ef_frontier.py"):
         assert want in names, want
 
 
@@ -124,6 +126,26 @@ def test_convergence_refuses_a_missing_card(capsys):
     assert "--device cpu" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="cuda"):
         convergence.run([], {})
+
+
+@pytest.mark.parametrize("module", ("adaptive_sweep", "ef_frontier"))
+def test_frontiers_refuse_a_missing_card(module, capsys):
+    """The A-LAQ width sweep and the EF frontier run on the card unless
+    told ``--device cpu``, as the paper tables do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib
+    mod = importlib.import_module(f"benchmarks_torch.{module}")
+    for argv in ([], ["--wire", "fused"]):
+        assert mod.main(argv) == 1
+        assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.run([], {})
+    if module == "adaptive_sweep":
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.regression_setup()
+    else:
+        assert mod.main(["--tiny"]) == 1
 
 
 def test_moe_entry_points_refuse_a_missing_card():

@@ -220,10 +220,9 @@ def test_sparse_quantize_pack_matches_pallas_and_jit(bits, case):
     v = _sparse_vals(case, bits)
     k = v.size
     lo, hi = jax.jit(lambda x: sparse_grid(x, bits))(v)
-    if bits > 1:     # min/max are exact; b=1's mean reduces in torch's order
-        tlo, thi = tsparse_grid(torch.from_numpy(v), bits)
-        _eq(tlo.numpy(), lo)
-        _eq(thi.numpy(), hi)
+    tlo, thi = tsparse_grid(torch.from_numpy(v), bits)
+    _eq(tlo.numpy(), lo)
+    _eq(thi.numpy(), hi)
     if case == "lo_far_below_step" and bits == 8:
         assert float(lo) == np.float32(1e-30)
     pk, codes, deq = ops.sparse_quantize_pack(
