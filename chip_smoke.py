@@ -221,7 +221,7 @@ CPU or to a plain version while a CUDA tensor is at hand):
     queue 3): its bits and loss are held to ``SSGD_RTOL``.  All nine
     claim checks must hold.  Each model's rows of each table run in a process
     of their own (``chip_smoke.py --paper-run MODULE FUNCTION OUT``), and
-    the processes of phases 13, 14 and 15, eight, all at once: each is
+    the processes of phases 13 to 16, eleven, all at once: each is
     host-bound eager rounds on one card with little memory.  Kernels 1
     and 2 are launched once per worker, leaf and round of QGD, LAQ and
     the NN's SLAQ: in Table 2 16,000 times each on the
@@ -264,6 +264,29 @@ CPU or to a plain version while a CUDA tensor is at hand):
     12,000, quantize_pack_adaptive 8,000 (its width mix printed), and
     sparse_quantize_pack 8,000.
 
+16. The stochastic lazy-aggregation frontier
+    (``benchmarks_torch/lasg_frontier.py``: the deterministic-LAQ floor,
+    then SGD, QSGD and SLAQ under rules 7a, WK, WK2, PS and with SVRG,
+    batch 10 of 60, b = 3, 500 rounds each) and the participation
+    frontier (``benchmarks_torch/participation_frontier.py``: LAQ and QGD
+    under Bernoulli sampling at p = 1.0, 0.5 and 0.2, a communication-rich
+    LAQ at p = 1.0 and 0.5, LAQ at delay D = 4 and under Markov churn, b =
+    4, 400 rounds each) at full size on the card with the fused wire, the
+    LASG runs split over ``LASG_PROCS`` processes, the participation runs
+    in one, at once with phases 13-15.  Every run's final uploads and
+    bits must equal ``JAX_STOCH_FRONTIERS``, the JAX modules' on the CPU,
+    its final loss be within ``LOSS_RTOL`` and its rows' entries that
+    count uploads, rounds or bits equal ``JAX_STOCH_FRONTIER_ROWS``; the
+    runs of ``STOCH_BANDS``, whose skip decisions the gradient's
+    reduction order moves (ROADMAP queue 3), within their bands, and
+    SLAQ-WK's and SLAQ-PS's uploads and bits equal the reference's in
+    every round of ``JAX_STOCH_PREFIX``.  The
+    targets must be within ``LOSS_RTOL`` of ``JAX_STOCH_FRONTIER_TARGETS``
+    and the eighteen claims the reference's.  Launches: absmax and
+    quantize_pack_fused 44,000 times each in the participation frontier,
+    once per worker and round of its 11 runs, the sampled-out workers too;
+    none in the LASG frontier, whose b = 3 is off the fused wire's widths.
+
 Phase 3 also draws ``random.normal`` and ``random.permutation`` (at a
 size that takes two shuffle rounds) on the card and on the CPU, in both
 threefry layouts, bitwise equal.
@@ -302,6 +325,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -326,7 +350,7 @@ EXCHANGE_LAZY_STEPS, EXCHANGE_LAZY_LAYERS = 2, 1
 # sharded_wk2_svrg --state-bf16 --layers 2 --memory: 18.36 GB on an H100
 # 80GB HBM3 at 700 W (20.42 GB with float32 state)
 EXCHANGE_BF16_LAYERS = 2
-CHILD_TIMEOUT = 600           # seconds for the processes of phases 6 and 13
+CHILD_TIMEOUT = 600           # seconds for the processes of phases 6, 13-16
 EXCHANGE_DEFENDED = dict(participation="bernoulli", participation_p=0.5,
                          participation_seed=1)   # phase 6, with the defense
 STOCH_LAYERS = {"slaq": 24, "slaq_wk": 8, "slaq_wk2_svrg": 6}  # phase 8
@@ -462,6 +486,131 @@ JAX_FRONTIER_CLAIMS = {"adaptive_sweep": (False, False, True, True),
 # the target)
 EF_RTOL = 0.1
 EF_LOSS_RTOL = 1e-2
+# phase 16's LASG runs go to LASG_PROCS processes, every LASG_PROCS-th
+# run of lasg_frontier.RUNS to each: in one, its 4,500 rounds were the
+# pool's longest process (347.2 s of ten at once on the card's 8 host
+# cores, the others 81.7-211.2 s)
+LASG_PROCS = 2
+# phase 16: (final cum_uploads, cum_bits, loss) of each run of the JAX
+# modules benchmarks/lasg_frontier.py (det_laq is its deterministic-LAQ
+# floor) and participation_frontier.py, their rows' uploads, rounds and
+# bits to the targets, their targets and their claims in order, run on
+# the CPU (jax 0.9.0, JAX_PLATFORMS=cpu; tests/stochastic_frontiers_probe.py)
+JAX_STOCH_FRONTIERS = {
+    "lasg_frontier/det_laq": (60, 1413120, 0.015967274084687233),
+    "lasg_frontier/sgd": (5000, 1254400000, 0.024750133976340294),
+    "lasg_frontier/qsgd": (5000, 156960000, 0.024840377271175385),
+    "lasg_frontier/slaq_7a": (55, 1295360, 0.07588044553995132),
+    "lasg_frontier/slaq_wk": (3015, 71009280, 0.023876236751675606),
+    "lasg_frontier/slaq_wk2": (54, 1271808, 0.058909256011247635),
+    "lasg_frontier/slaq_ps": (689, 16227328, 0.024595040827989578),
+    "lasg_frontier/slaq_vr": (60, 1413120, 0.0171027984470129),
+    "participation_frontier/laq_p1.0": (65, 2040480, 0.015023739077150822),
+    "participation_frontier/qgd_p1.0": (4000, 125568000,
+                                        0.015069367364048958),
+    "participation_frontier/laq_p0.5": (62, 1946304, 0.014931919053196907),
+    "participation_frontier/qgd_p0.5": (2033, 63819936, 0.015058739110827446),
+    "participation_frontier/laq_p0.2": (56, 1757952, 0.014897521585226059),
+    "participation_frontier/qgd_p0.2": (813, 25521696, 0.0150006003677845),
+    "participation_frontier/laq_rich_p1.0": (153, 4802976,
+                                             0.014950219541788101),
+    "participation_frontier/laq_rich_p0.5": (99, 3107808,
+                                             0.014897621236741543),
+    "participation_frontier/laq_d4": (60, 1883520, 0.015007507055997849),
+    "participation_frontier/laq_mkv_burst": (56, 1757952,
+                                             0.015192138962447643),
+    "participation_frontier/laq_mkv_iid": (60, 1883520, 0.01504396740347147),
+}
+JAX_STOCH_FRONTIER_ROWS = {
+    "lasg_frontier/sgd": dict(
+        rounds_to_target=3010, bits_to_target=755148800.0,
+        bits_to_det_floor=None),
+    "lasg_frontier/qsgd": dict(
+        rounds_to_target=3030, bits_to_target=95117760.0,
+        bits_to_det_floor=None),
+    "lasg_frontier/slaq_7a": dict(
+        rounds_to_target=None, bits_to_target=None,
+        bits_to_det_floor=None),
+    "lasg_frontier/slaq_wk": dict(
+        rounds_to_target=1966, bits_to_target=46303232.0,
+        bits_to_det_floor=None),
+    "lasg_frontier/slaq_wk2": dict(
+        rounds_to_target=None, bits_to_target=None,
+        bits_to_det_floor=None),
+    "lasg_frontier/slaq_ps": dict(
+        rounds_to_target=529, bits_to_target=12459008.0,
+        bits_to_det_floor=None),
+    "lasg_frontier/slaq_vr": dict(
+        rounds_to_target=30, bits_to_target=706560.0,
+        bits_to_det_floor=1177600.0),
+    "participation_frontier/laq_p1.0": dict(
+        uploads_to_target=41, bits_to_target=1287072.0),
+    "participation_frontier/qgd_p1.0": dict(
+        uploads_to_target=2470, bits_to_target=77538240.0),
+    "participation_frontier/laq_p0.5": dict(
+        uploads_to_target=42, bits_to_target=1318464.0),
+    "participation_frontier/qgd_p0.5": dict(
+        uploads_to_target=1212, bits_to_target=38047104.0),
+    "participation_frontier/laq_p0.2": dict(
+        uploads_to_target=20, bits_to_target=627840.0),
+    "participation_frontier/qgd_p0.2": dict(
+        uploads_to_target=415, bits_to_target=13027680.0),
+    "participation_frontier/laq_rich_p1.0": dict(
+        uploads_to_target=121, bits_to_target=3798432.0),
+    "participation_frontier/laq_rich_p0.5": dict(
+        uploads_to_target=65, bits_to_target=2040480.0),
+    "participation_frontier/laq_d4": dict(
+        uploads_to_target=30, bits_to_target=941760.0),
+    "participation_frontier/laq_mkv_burst": dict(
+        uploads_to_target=26, bits_to_target=816192.0),
+    "participation_frontier/laq_mkv_iid": dict(
+        uploads_to_target=30, bits_to_target=941760.0),
+}
+JAX_STOCH_FRONTIER_TARGETS = {
+    "lasg_frontier": dict(target_loss=0.02970016077160835,
+                          det_floor=0.015967274084687233,
+                          det_target=0.018362365197390318),
+    "participation_frontier": dict(target_loss=0.015822835732251406),
+}
+JAX_STOCH_FRONTIER_CLAIMS = {"lasg_frontier": (True,) * 8,
+                             "participation_frontier": (True,) * 10}
+# the reference's uploads in each of the first rounds of SLAQ-WK and
+# SLAQ-PS, one hexadecimal digit a round: the rounds before the first in
+# which the reference, fed the minibatch rows in any of 32 other orders,
+# parts from its own run (98 for WK, 182 for PS;
+# tests/stochastic_frontiers_probe.py section 7)
+JAX_STOCH_PREFIX = {
+    "lasg_frontier/slaq_wk": "a" * 67 + "9" * 14 + "a" * 16,
+    "lasg_frontier/slaq_ps": ("aa0a182816351633333423334224240351251243322442"
+                              "0343123410621125112430242123303142113411312314"
+                              "0222220240302133110520204113102320221400232101"
+                              "1421011322102220132021141013230103132021300"),
+}
+# (uploads, bits and rows, final loss) relative bands of the runs whose
+# skip decisions or codes follow the gradient's float32 rounding (ROADMAP
+# queue 3); every other run is held exactly and its loss to LOSS_RTOL.
+# Each band lies between two readings taken apart from the card's own:
+# below it, how far the rounding alone moves the run; above it, how far a
+# planted fault of the run's rule moves it (on the CPU,
+# tests/stochastic_frontiers_probe.py sections 7 and 8; on an H100,
+# tests/lasg_order_witness.py).
+# - SLAQ-WK: the reference fed each minibatch's rows in 32 other orders
+#   ends at -22.1% to +26.8% uploads and bits, -26.2% to +13.6% rows to
+#   the target, loss -2.25% to +2.11%.  Its variance estimate left
+#   undebiased: -93.7% uploads, loss +3.15%; sigma_hat^2 never refreshed:
+#   -95.9%, +54%.
+# - SLAQ-PS: 32 orders +-1.02% uploads, -0.57% to +0.38% rows, loss
+#   -0.21% to +0.46%.  Lhat^2 left undebiased: -26.1% uploads (its loss,
+#   -0.30%, lies inside the orders' spread: its counts catch it).
+# - SLAQ-VR: its counts equal the reference's in every order; its loss
+#   follows the gradient's accuracy: 32 orders move it by 3.4e-6 at most,
+#   the port's gradients computed in float64 by -6.29e-5.  Its anchor
+#   refreshed only once: +247% uploads, loss +4.4.
+# SLAQ-WK and SLAQ-PS are also held in every round of JAX_STOCH_PREFIX,
+# which each planted fault leaves by round 4.
+STOCH_BANDS = {"lasg_frontier/slaq_wk": (0.3, 0.025),
+               "lasg_frontier/slaq_ps": (0.02, 5e-3),
+               "lasg_frontier/slaq_vr": (0.0, 1e-4)}
 
 
 def log(msg):
@@ -2565,15 +2714,17 @@ def _same_bits(torch, a, b) -> bool:
             and torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)))
 
 
-def _paper_run(module, function, path):
-    """One run of phases 13, 14 and 15 in a process of its own:
+def _paper_run(module, function, path, names=()):
+    """One run of phases 13 to 16 in a process of its own:
     ``benchmarks_torch.<module>.<function>`` at full size on the card with
     the fused wire, the launch counters zeroed just before and read just
     after; writes its rows, what it returns (the claim checks, or None),
-    each run's per-round uploads and bits and its final loss, the
-    launches (kernel 4's also by width) and the seconds, or the error, to
-    the JSON file ``path``.
-    Returns the process's exit code."""
+    each run's per-round uploads and bits and its final loss, the launches
+    (kernel 4's also by width) and the seconds, or the error, to the JSON
+    file ``path``.  With ``names``, ``function`` runs those runs alone, a
+    part of a frontier's runs (``lasg_frontier.run_methods``): no rows and
+    no checks then, and each run's per-round loss too, from which the
+    parent makes the rows.  Returns the process's exit code."""
     try:
         root = os.path.dirname(os.path.abspath(__file__))
         sys.path[:0] = [os.path.join(root, "src"), root]
@@ -2588,10 +2739,15 @@ def _paper_run(module, function, path):
         for name in KERNELS:
             getattr(ops, name).launches = 0
         ops.quantize_pack_adaptive.launches_by_width = {}
-        results, traces = {}, {}
+        results, traces, checks = {}, {}, None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        checks = run([], results, device="cuda", wire="fused", traces=traces)
+        if names:
+            traces = {f"{module}/{k}": r for k, r in run(
+                list(names), device="cuda", wire="fused").items()}
+        else:
+            checks = run([], results, device="cuda", wire="fused",
+                         traces=traces)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: getattr(ops, k).launches for k in KERNELS}
@@ -2600,7 +2756,8 @@ def _paper_run(module, function, path):
                 ops.quantize_pack_adaptive.launches_by_width.items())}
         runs = {k: dict(cum_uploads=r.cum_uploads.tolist(),
                         cum_bits=r.cum_bits.tolist(),
-                        final_loss=float(r.loss[-1]))
+                        final_loss=float(r.loss[-1]),
+                        **({"loss": r.loss.tolist()} if names else {}))
                 for k, r in traces.items()}
         _report(path, dict(launches=launches, seconds=seconds,
                            results=results, checks=checks, runs=runs))
@@ -2645,10 +2802,11 @@ def paper_data_check(torch):
 
 
 def paper_children() -> dict:
-    """The processes of phases 13, 14 and 15: ``{phase: {run: argv}}``.
+    """The processes of phases 13 to 16: ``{phase: {run: argv}}``.
     Each is this script's ``--paper-run`` on one of the paper's
     experiments; all of them run at once (each is host-bound: one card,
     little memory)."""
+    from benchmarks_torch import lasg_frontier
     return {
         13: {(table, model): ["--paper-run", TABLE_MODULES[table],
                               f"run_{model}"]
@@ -2656,6 +2814,12 @@ def paper_children() -> dict:
         14: {"convergence": ["--paper-run", "convergence", "run"],
              "bits_sweep_laq": ["--paper-run", "bits_sweep", "run_sweep"]},
         15: {m: ["--paper-run", m, "run"] for m in FRONTIER_MODULES},
+        16: {**{f"lasg_frontier/{i}": ["--paper-run", "lasg_frontier",
+                                       "run_methods",
+                                       *lasg_frontier.RUNS[i::LASG_PROCS]]
+                for i in range(LASG_PROCS)},
+             "participation_frontier": ["--paper-run",
+                                        "participation_frontier", "run"]},
     }
 
 
@@ -2862,6 +3026,107 @@ def paper_frontiers(out):
             or not set(by_width) <= {"2", "4", "8"}):
         raise AssertionError(f"phase 15: kernel 4's widths {by_width}")
     log(f"  ok kernel 4's width mix over the two A-LAQ runs: {by_width}")
+    return launches, rows
+
+
+def _prefix_part(got, digits, bits_per_upload):
+    """The first round (from 1) of the prefix ``digits`` (uploads in each
+    round, one hexadecimal digit a round) in which the run ``got``'s
+    uploads or bits part from them, or None."""
+    want = 0
+    for k, (digit, uploads, bits) in enumerate(zip(
+            digits, got["cum_uploads"], got["cum_bits"])):
+        want += int(digit, 16)
+        if uploads != want or bits != want * bits_per_upload:
+            return k + 1
+    return None
+
+
+def paper_stoch_frontiers(out):
+    """Phase 16: the LASG and the participation frontier at full size on
+    the card with the fused wire, the LASG runs in the processes of
+    ``LASG_PROCS`` (their rows and claims made here by
+    ``lasg_frontier.frontier``), the participation runs in one; ``out``
+    holds the processes' results.  Every run's final uploads and bits
+    must equal ``JAX_STOCH_FRONTIERS`` and its rows' entries that count
+    uploads, rounds or bits ``JAX_STOCH_FRONTIER_ROWS``, its final loss
+    within ``LOSS_RTOL``; the runs of ``STOCH_BANDS``, which part from
+    JAX's on skip decisions that the gradient's reduction order moves
+    (ROADMAP queue 3), within their bands, after equal uploads and bits
+    in every round of ``JAX_STOCH_PREFIX``.  The targets must be within
+    ``LOSS_RTOL`` of ``JAX_STOCH_FRONTIER_TARGETS`` and the claims the
+    reference's.  Returns ``(launches by module, rows)``."""
+    from benchmarks_torch import (common, lasg_frontier,
+                                  participation_frontier)
+    parts = [res for run, res in out.items()
+             if run.startswith("lasg_frontier/")]
+    runs = {k: v for res in parts for k, v in res["runs"].items()}
+    results = {}
+    checks = lasg_frontier.frontier(
+        {k.split("/")[1]: SimpleNamespace(**v) for k, v in runs.items()}, [],
+        results)
+    out = {"lasg_frontier": dict(
+        runs=runs, results=results, checks=checks,
+        seconds=max(res["seconds"] for res in parts),
+        launches={k: sum(res["launches"][k] for res in parts)
+                  for k in KERNELS}),
+        "participation_frontier": out["participation_frontier"]}
+    # one absmax and one quantize_pack_fused per worker and round of each
+    # participation run, the sampled-out workers' too (the reference's
+    # vmap runs every lane); the LASG frontier's b = 3 is off the fused
+    # wire's widths and its baselines have no LAQ wire: no launch
+    n = (len(participation_frontier._methods("fused"))
+         * participation_frontier.STEPS * common.M_WORKERS)
+    want_launches = {"lasg_frontier": {},
+                     "participation_frontier": {"absmax": n,
+                                                "quantize_pack_fused": n}}
+    launches, rows = {}, {}
+    for module, res in out.items():
+        expect_launches(module, res["launches"], want_launches[module])
+        launches[module] = res["launches"]
+        for run, got in res["runs"].items():
+            uploads, bits, loss = (got["cum_uploads"][-1], got["cum_bits"][-1],
+                                   got["final_loss"])
+            want = JAX_STOCH_FRONTIERS[run]
+            count_rtol, loss_rtol = STOCH_BANDS.get(run, (0.0, LOSS_RTOL))
+            part = _prefix_part(got, JAX_STOCH_PREFIX.get(run, ""),
+                                want[1] / want[0])
+            if part is not None:
+                raise AssertionError(
+                    f"phase 16 {run}: uploads or bits part from JAX's in "
+                    f"round {part}, within the first "
+                    f"{len(JAX_STOCH_PREFIX[run])}")
+            if not (_close(uploads, want[0], count_rtol)
+                    and _close(bits, want[1], count_rtol)):
+                raise AssertionError(f"phase 16 {run}: uploads, bits "
+                                     f"{uploads}, {bits:.0f}; JAX {want[:2]} "
+                                     f"(rtol {count_rtol})")
+            if not _close(loss, want[2], loss_rtol):
+                raise AssertionError(f"phase 16 {run}: final loss {loss!r}, "
+                                     f"JAX {want[2]!r} (rtol {loss_rtol})")
+            want_row = JAX_STOCH_FRONTIER_ROWS.get(run, {})
+            row = {k: res["results"][run][k] for k in want_row}
+            for k, v in want_row.items():
+                if not _close(row[k], v, count_rtol):
+                    raise AssertionError(f"phase 16 {run}: {k} {row[k]}, "
+                                         f"JAX {v} (rtol {count_rtol})")
+            rows[run] = dict(uploads=uploads, bits=bits, final_loss=loss,
+                             jax=want, **row)
+            log(f"  ok {run}: uploads {uploads} bits {bits:.0f} (JAX "
+                f"{want[0]}, {want[1]}), final loss {loss!r} (JAX "
+                f"{want[2]!r}), {row}")
+        target = res["results"][f"{module}/target"]
+        for k, v in JAX_STOCH_FRONTIER_TARGETS[module].items():
+            if not _close(target[k], v, LOSS_RTOL):
+                raise AssertionError(f"phase 16 {module}: {k} {target[k]!r}, "
+                                     f"JAX {v!r}")
+        claims = tuple(res["checks"].values())
+        if claims != JAX_STOCH_FRONTIER_CLAIMS[module]:
+            raise AssertionError(f"phase 16 {module}: claims {res['checks']}"
+                                 f", JAX {JAX_STOCH_FRONTIER_CLAIMS[module]}")
+        log(f"  ok {module}: {res['seconds']:.1f} s on the card, launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }; targets "
+            f"{target}; the claims are the reference's: {res['checks']}")
     return launches, rows
 
 
@@ -3153,7 +3418,7 @@ def main() -> int:
         log("  " + json.dumps({f"{path}_train": train_row,
                                f"{path}_serve": serve_row}))
 
-    log("phases 13-15: the paper's experiments at full size, fused wire, "
+    log("phases 13-16: the paper's experiments at full size, fused wire, "
         "each run in a process of its own, all at once")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3161,9 +3426,9 @@ def main() -> int:
     flat = [(phase, run, argv) for phase, runs in paper_children().items()
             for run, argv in runs.items()]
     t0 = time.perf_counter()
-    res = _run_children([argv for _, _, argv in flat], "phases 13-15")
+    res = _run_children([argv for _, _, argv in flat], "phases 13-16")
     wall = time.perf_counter() - t0
-    out = {13: {}, 14: {}, 15: {}}
+    out = {13: {}, 14: {}, 15: {}, 16: {}}
     for (phase, run, _), r in zip(flat, res):
         out[phase][run] = r
     log("phase 13: the paper's Tables 2 and 3")
@@ -3178,7 +3443,11 @@ def main() -> int:
     frontier_launches, frontier_rows = paper_frontiers(out[15])
     by_path.update(frontier_launches)
     log("  " + json.dumps({"paper_frontiers": frontier_rows}))
-    log(f"  ok phases 13-15: the {len(flat)} processes in {wall:.1f} s, at "
+    log("phase 16: the LASG and the participation frontier")
+    stoch_launches, stoch_rows = paper_stoch_frontiers(out[16])
+    by_path.update(stoch_launches)
+    log("  " + json.dumps({"paper_stoch_frontiers": stoch_rows}))
+    log(f"  ok phases 13-16: the {len(flat)} processes in {wall:.1f} s, at "
         "once")
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
@@ -3228,5 +3497,5 @@ if __name__ == "__main__":
         rank, port, path = sys.argv[2:5]
         sys.exit(_exchange_rank(int(rank), int(port), path))
     if sys.argv[1:2] == ["--paper-run"]:
-        sys.exit(_paper_run(*sys.argv[2:5]))
+        sys.exit(_paper_run(*sys.argv[2:4], sys.argv[-1], sys.argv[4:-1]))
     sys.exit(main())

@@ -112,7 +112,9 @@ def test_port_files_cover_the_new_modules():
                  "benchmarks_torch/table3_stochastic.py",
                  "benchmarks_torch/convergence.py",
                  "benchmarks_torch/adaptive_sweep.py",
-                 "benchmarks_torch/ef_frontier.py"):
+                 "benchmarks_torch/ef_frontier.py",
+                 "benchmarks_torch/lasg_frontier.py",
+                 "benchmarks_torch/participation_frontier.py"):
         assert want in names, want
 
 
@@ -128,10 +130,13 @@ def test_convergence_refuses_a_missing_card(capsys):
         convergence.run([], {})
 
 
-@pytest.mark.parametrize("module", ("adaptive_sweep", "ef_frontier"))
+@pytest.mark.parametrize("module", ("adaptive_sweep", "ef_frontier",
+                                    "lasg_frontier",
+                                    "participation_frontier"))
 def test_frontiers_refuse_a_missing_card(module, capsys):
-    """The A-LAQ width sweep and the EF frontier run on the card unless
-    told ``--device cpu``, as the paper tables do."""
+    """The A-LAQ width sweep and the EF, LASG and participation frontiers
+    run on the card unless told ``--device cpu``, as the paper tables
+    do."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     import importlib
@@ -144,8 +149,15 @@ def test_frontiers_refuse_a_missing_card(module, capsys):
     if module == "adaptive_sweep":
         with pytest.raises(RuntimeError, match="cuda"):
             mod.regression_setup()
-    else:
+    elif module == "lasg_frontier":
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.run_methods(["sgd"])
+    if module == "ef_frontier":
         assert mod.main(["--tiny"]) == 1
+    elif module != "adaptive_sweep":
+        # the reference's LASG and participation frontiers have no --tiny
+        with pytest.raises(SystemExit):
+            mod.main(["--tiny"])
 
 
 def test_moe_entry_points_refuse_a_missing_card():
