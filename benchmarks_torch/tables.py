@@ -1,6 +1,7 @@
 """The command line shared by the paper's experiments on the port
 (``table2_gradient``, ``table3_stochastic``, ``convergence``,
-``bits_sweep``, ``adaptive_sweep``, ``ef_frontier``)."""
+``bits_sweep``, ``adaptive_sweep``, ``ef_frontier``, ``lasg_frontier``,
+``participation_frontier``, ``fault_frontier``)."""
 from __future__ import annotations
 
 import argparse

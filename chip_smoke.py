@@ -15,7 +15,10 @@ CPU or to a plain version while a CUDA tensor is at hand):
    (``TABLE_LEAVES``) at b = 2, 4 and 8, a length that is not a multiple of
    8 or 4096, an unaligned operand, R == 0 and b in {1, 2, 4, 8}.
    Phase 15's shapes: the regression's w (50,) at b = 2, 4 and 8, the
-   logistic w also at b = 1.
+   logistic w also at b = 1.  Phase 17's leaf (8, 4) at b = 2, 4 and 8,
+   and at that leaf and at 1,000,003 elements, b = 4, the fault
+   frontier's non-finite gradients: one NaN, one +inf and one -inf, all
+   +inf and all NaN, NaN compared as NaN (moments too).
    ``quantize_pack_adaptive``: at those 18 leaf shapes for each width of
    the grid (2, 4, 8), the grid (2, 4) (4-bit lanes), a ragged length,
    R == 0 and a NaN input; a pinned width must equal
@@ -49,8 +52,11 @@ CPU or to a plain version while a CUDA tensor is at hand):
    Uploads, bits and every worker's rejections equal.
    ``run_with_watchdog`` with escalation (a temporary directory) gives
    the same log on both; a checkpoint resume on the card equals the
-   unbroken run.  A NaN innovation under top-k: the support of 2^20
-   planted values (ties, NaN of both signs, +-inf), kernel 7 on its NaN
+   unbroken run, and so do the resumes of lasg_ps, delay and lasg_wk2 with
+   SVRG and bernoulli sampling (their carries hold shared iterates), each
+   holding no more ``torch.cuda.memory_allocated()`` after the load than
+   the unbroken carry (both printed).  A NaN innovation under top-k: the
+   support of 2^20 planted values (ties, NaN of both signs, +-inf), kernel 7 on its NaN
    and infinite grids, and the 10-worker quadratic under EF-top-k with
    NaN corruption (6 rounds, with validation and without), card vs CPU;
    the rejects must be the reference's.
@@ -221,7 +227,7 @@ CPU or to a plain version while a CUDA tensor is at hand):
     queue 3): its bits and loss are held to ``SSGD_RTOL``.  All nine
     claim checks must hold.  Each model's rows of each table run in a process
     of their own (``chip_smoke.py --paper-run MODULE FUNCTION OUT``), and
-    the processes of phases 13 to 16, eleven, all at once: each is
+    the processes of phases 13 to 17, twelve, all at once: each is
     host-bound eager rounds on one card with little memory.  Kernels 1
     and 2 are launched once per worker, leaf and round of QGD, LAQ and
     the NN's SLAQ: in Table 2 16,000 times each on the
@@ -286,6 +292,23 @@ CPU or to a plain version while a CUDA tensor is at hand):
     quantize_pack_fused 44,000 times each in the participation frontier,
     once per worker and round of its 11 runs, the sampled-out workers too;
     none in the LASG frontier, whose b = 3 is off the fused wire's widths.
+
+17. The fault frontier (``benchmarks_torch/fault_frontier.py``: LAQ and
+    dense QGD at b = 4 on a 4-class softmax regression over W = 6 workers,
+    one leaf of 8 x 4, 120 rounds each, under inf and NaN corruption,
+    crash-restart and -40x scaling, with and without validation, the norm
+    gate, crash reconciliation and the trimmed mean, and the undefended inf
+    run under ``run_with_watchdog``, which rolls back from its checkpoint
+    and escalates) at full size on the card with the fused wire, in a
+    process of its own at once with phases 13-16.  Every row's final
+    uploads and bits, ``finite`` and ``bits_to_target`` must equal
+    ``JAX_FAULT_FRONTIER``, the JAX module's on the CPU, its final loss be
+    within ``LOSS_RTOL`` (NaN where NaN), the target within ``LOSS_RTOL``,
+    the watchdog's log equal and the eleven claims the reference's (two
+    fail in the reference too).  Launches: absmax and quantize_pack_fused
+    once per worker and round of the eleven cells and of the watchdog's
+    healthy and wasted chunks, 8,760 each (printed beside the prediction):
+    a corrupted, crashed or rejected worker still runs its wire.
 
 Phase 3 also draws ``random.normal`` and ``random.permutation`` (at a
 size that takes two shuffle rounds) on the card and on the CPU, in both
@@ -611,6 +634,37 @@ JAX_STOCH_PREFIX = {
 STOCH_BANDS = {"lasg_frontier/slaq_wk": (0.3, 0.025),
                "lasg_frontier/slaq_ps": (0.02, 5e-3),
                "lasg_frontier/slaq_vr": (0.0, 1e-4)}
+# phase 17: (final cum_uploads, cum_bits, loss, finite, bits_to_target) of
+# each row of the JAX module benchmarks/fault_frontier.py, its target, the
+# watchdog's log and its claims in order, run on the CPU (jax 0.9.0,
+# JAX_PLATFORMS=cpu, its BENCH_faults.json written elsewhere;
+# tests/fault_frontier_probe.py).  Two claims fail in the reference too
+# (ROADMAP, reference-side discrepancies): the port is held to them.
+NAN = float("nan")
+JAX_FAULT_FRONTIER = {
+    "rows": {
+        "clean": (209, 33440.0, 2.0513916015625, True, 24000.0),
+        "clean_defended": (209, 33440.0, 2.0513916015625, True, 24000.0),
+        "inf_undefended": (720, 115200.0, NAN, False, None),
+        "inf_defended": (262, 41920.0, 2.0513052940368652, True, 28480.0),
+        "nan_undefended": (275, 44000.0, 2.0513968467712402, True, 29440.0),
+        "nan_defended": (262, 41920.0, 2.0513052940368652, True, 28480.0),
+        "crash_naive": (176, 28160.0, 3.232029438018799, True, 13280.0),
+        "crash_reconciled": (205, 32800.0, 2.051255464553833, True, 23040.0),
+        "scale_qgd_sum": (720, 115200.0, 5444.8134765625, True, None),
+        "scale_qgd_trimmed": (720, 115200.0, 1312.948486328125, True, None),
+        "scale_laq_gated": (282, 45120.0, 2.221200466156006, True, None),
+        "watchdog_inf": (262, 41920.0, 2.0513052940368652, True, 28480.0),
+    },
+    "target_loss": 2.09241943359375,
+    "watchdog_log": {"rollbacks": 1, "wasted_rounds": 20,
+                     "wasted_bits": 19200.0, "gave_up": False},
+    "claims": (True,) * 8 + (False, False, True),
+}
+# the fault frontier's one leaf (phase 2), and the length of phase 2's
+# non-finite cases of kernels 1 and 2
+FAULT_LEAF = ("fault w", (8, 4))
+NONFINITE_N = 1_000_003
 
 
 def log(msg):
@@ -657,11 +711,13 @@ def _bitwise(torch, label, names, got, want):
 
 
 def _moments_close(label, got, want, nan_ok=False) -> float:
-    """Largest absolute difference of the two moments (rtol 1e-5)."""
+    """Largest absolute difference of the two moments (rtol 1e-5; with
+    ``nan_ok`` NaN equals NaN and an infinite moment must be equal)."""
     e = 0.0
     for name, a, b in zip(("err_sq", "innovation_sq"), got, want):
         a, b = a.item(), b.item()
-        if nan_ok and math.isnan(a) and math.isnan(b):
+        if nan_ok and ((math.isnan(a) and math.isnan(b)) or
+                       (math.isinf(b) and a == b)):
             continue
         if not abs(a - b) <= 1e-5 * abs(b):
             raise AssertionError(f"{label}: {name} {a!r} vs plain {b!r}")
@@ -678,33 +734,58 @@ def check_kernels(leaf_shapes, torch, ops, ref):
     gen.manual_seed(1)
     err = {"absmax": 0.0, "quantize_pack_fused": 0.0}
 
-    def one(label, g, qh, bits):
+    def one(label, g, qh, bits, nonfinite=False):
         R = ops.absmax(g, qh)
         R_ref = ref.absmax_ref(g, qh)
         torch.cuda.synchronize()
-        if not torch.equal(R, R_ref):
+        if nonfinite:
+            # NaN compared as NaN, moments with equal_nan
+            _nan_equal(torch, label, ("absmax",), (R,), (R_ref,))
+        elif not torch.equal(R, R_ref):
             raise AssertionError(f"{label}: absmax {R.item()!r} != plain "
                                  f"{R_ref.item()!r}")
-        err["absmax"] = max(err["absmax"], (R - R_ref).abs().item())
+        else:
+            err["absmax"] = max(err["absmax"], (R - R_ref).abs().item())
         got = ops.quantize_pack_fused(g, qh, R, bits)
         want = ref.quantize_pack_fused_ref(g, qh, R, bits)
         torch.cuda.synchronize()
-        _bitwise(torch, label, ("packed", "delta", "q_new"), got[:3], want[:3])
-        e = _moments_close(label, got[3:], want[3:])
-        err["quantize_pack_fused"] = max(err["quantize_pack_fused"], e)
+        names = ("packed", "delta", "q_new")
+        if nonfinite:
+            _nan_equal(torch, label, names, got[:3], want[:3])
+        else:
+            _bitwise(torch, label, names, got[:3], want[:3])
+        e = _moments_close(label, got[3:], want[3:], nan_ok=nonfinite)
+        if not nonfinite:
+            err["quantize_pack_fused"] = max(err["quantize_pack_fused"], e)
         log(f"  ok {label}: n={g.numel()} b={bits} R={R.item():.6e} "
-            f"bitwise; moments {got[3].item():.6e} {got[4].item():.6e}")
+            f"{'bitwise, NaN as NaN' if nonfinite else 'bitwise'}; moments "
+            f"{got[3].item():.6e} {got[4].item():.6e}")
 
     for name, shape in leaf_shapes:
         n = math.prod(shape)
         g, qh = _pair(torch, gen, n)
         one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape), 8)
         del g, qh
-    for name, shape in TABLE_LEAVES + (REGRESSION_LEAF,):
+    for name, shape in TABLE_LEAVES + (REGRESSION_LEAF, FAULT_LEAF):
         g, qh = _pair(torch, gen, math.prod(shape))
         # ef_frontier's plain_b1 runs the logistic w at b=1
         for bits in (1, 2, 4, 8) if name == "logistic w" else (2, 4, 8):
             one(f"{name} {tuple(shape)}", g.view(shape), qh.view(shape), bits)
+    # the fault frontier's corrupted gradients, at its leaf and at a long
+    # ragged length, b=4: one NaN (R is NaN, the R > 0 guard drops the
+    # payload), one +inf and one -inf, all +inf (R = inf, delta from
+    # fma(2 tau R, q, -R)) and all NaN
+    for name, shape in (FAULT_LEAF, ("ragged", (NONFINITE_N,))):
+        n = math.prod(shape)
+        g, qh = _pair(torch, gen, n)
+        nan_one, infs = g.clone(), g.clone()
+        nan_one[n // 3] = math.nan
+        infs[1], infs[n - 2] = math.inf, -math.inf
+        for case, bad in (("one NaN", nan_one), ("+inf and -inf", infs),
+                          ("all +inf", torch.full_like(g, math.inf)),
+                          ("all NaN", torch.full_like(g, math.nan))):
+            one(f"{name} {tuple(shape)} {case}", bad.view(shape),
+                qh.view(shape), 4, nonfinite=True)
     g, qh = _pair(torch, gen, 3 * 4096 + 1239)
     one("ragged length", g, qh, 8)
     g, qh = _pair(torch, gen, 1_000_003, shift=1)
@@ -1154,6 +1235,72 @@ def robust_small_check(torch, tmpdir):
                                  f"differs from the unbroken run")
     log(f"  ok checkpoint resume on the card at round 2 equals the "
         f"unbroken {SMALL_ROBUST_ROUNDS} rounds")
+
+    # the runs whose carry holds shared iterates: a resumed carry holds one
+    # tensor per distinct iterate, no more memory than the unbroken one
+    del carry, whole, first, second, _
+    stoch_corpus = lm_worker_corpus(1, W, STOCH_N_LOCAL, 32, cfg.vocab,
+                                    device="cuda")
+    shared = {
+        "lasg_ps": (False, lm_runs["delay"]._replace(
+            participation="full", max_delay=0, lazy_rule="lasg_ps")),
+        "delay": (False, lm_runs["delay"]),
+        "wk2_svrg_bernoulli": (True, lm_runs["delay"]._replace(
+            participation="bernoulli", participation_p=0.6, max_delay=0,
+            lazy_rule="lasg_wk2", grad_mode="svrg", svrg_period=2)),
+    }
+    for name, (stochastic, strategy) in shared.items():
+        if stochastic:
+            eng = RoundEngine(AccumulatingSource(
+                lm_worker_loss(cfg, W), stoch_corpus, batch=STOCH_BATCH,
+                seed=0, accum=ACCUM, scale=1.0), strategy, alpha=SMALL_ALPHA)
+        else:
+            eng = lm_engine("cuda", strategy)
+        shared_resume_check(torch, name, eng, params, path)
+
+
+def shared_resume_check(torch, name, eng, params, path):
+    """Phase 3: ``eng`` 2 rounds from ``params`` on the card, saved to
+    ``path`` and resumed into a fresh carry; the resumed run's next 2
+    rounds must equal the unbroken run's bit for bit (counts, losses,
+    radii and parameters), and ``torch.cuda.memory_allocated()`` of the
+    resumed carry, taken after the load, must be no more than the unbroken
+    carry's (both printed)."""
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_leaves
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    a0 = allocated()
+    carry, rec = eng.run_from(eng.init_carry(params, device="cuda"), 2)
+    del rec
+    unbroken = allocated() - a0
+    save_checkpoint(path, carry, 2)
+    _, whole = eng.run_from(carry, 2)
+    del carry, _
+    a1 = allocated()
+    carry, step = load_checkpoint(path, eng.init_carry(params, device="cuda"))
+    resumed = allocated() - a1
+    _, second = eng.run_from(carry, 2)
+    del carry, _
+    same = step == 2 and all(
+        torch.equal(getattr(second, f), getattr(whole, f))
+        for f in ("cum_uploads", "cum_bits", "loss", "quant_err")) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(second.params),
+                                          tree_leaves(whole.params)))
+    if not same:
+        raise AssertionError(f"checkpoint resume of {name} on the card "
+                             "differs from the unbroken run")
+    if resumed > unbroken:
+        raise AssertionError(
+            f"checkpoint resume of {name} on the card: the resumed carry "
+            f"holds {resumed} B, the unbroken one {unbroken} B")
+    log(f"  ok checkpoint resume of {name} on the card at round 2 equals "
+        f"the unbroken run; torch.cuda.memory_allocated() of the carry: "
+        f"unbroken {unbroken} B, resumed {resumed} B")
 
 
 def random_card_check(torch):
@@ -2802,7 +2949,7 @@ def paper_data_check(torch):
 
 
 def paper_children() -> dict:
-    """The processes of phases 13 to 16: ``{phase: {run: argv}}``.
+    """The processes of phases 13 to 17: ``{phase: {run: argv}}``.
     Each is this script's ``--paper-run`` on one of the paper's
     experiments; all of them run at once (each is host-bound: one card,
     little memory)."""
@@ -2820,6 +2967,7 @@ def paper_children() -> dict:
                 for i in range(LASG_PROCS)},
              "participation_frontier": ["--paper-run",
                                         "participation_frontier", "run"]},
+        17: {"fault_frontier": ["--paper-run", "fault_frontier", "run"]},
     }
 
 
@@ -3130,6 +3278,69 @@ def paper_stoch_frontiers(out):
     return launches, rows
 
 
+def _same_loss(got, want) -> bool:
+    """A final loss within ``LOSS_RTOL`` of JAX's, NaN where NaN."""
+    if math.isnan(want) or math.isnan(got):
+        return math.isnan(want) and math.isnan(got)
+    return _close(got, want, LOSS_RTOL)
+
+
+def paper_fault_frontier(res):
+    """Phase 17: the fault frontier at full size on the card with the fused
+    wire, in a process of its own; ``res`` holds its result.  Every row's
+    final uploads and bits, ``finite`` and ``bits_to_target`` must equal
+    ``JAX_FAULT_FRONTIER``'s and its final loss be within ``LOSS_RTOL`` (NaN
+    where NaN); the target within ``LOSS_RTOL``, the watchdog's log equal
+    and the claims the reference's (the first holds only if the clean and
+    the defended losses are bitwise equal on the card).  Kernels 1 and 2
+    launch once per worker and round of each of the eleven cells and of
+    the watchdog's healthy and wasted chunks.  Returns ``(launches,
+    rows)``."""
+    from benchmarks_torch import fault_frontier as ff
+    want = JAX_FAULT_FRONTIER
+    wasted = want["watchdog_log"]["wasted_rounds"]
+    cells = (len(want["rows"]) - 1) * ff.STEPS * ff.W
+    n = cells + (ff.STEPS + wasted) * ff.W
+    expect_launches("fault_frontier", res["launches"],
+                    {"absmax": n, "quantize_pack_fused": n})
+    rows = {}
+    for name, (uploads, bits, loss, finite, to_target) in want["rows"].items():
+        row = res["results"][f"fault_frontier/{name}"]
+        got = (row["total_uploads"], row["total_bits"], row["finite"],
+               row["bits_to_target"])
+        if got != (uploads, bits, finite, to_target):
+            raise AssertionError(
+                f"phase 17 {name}: uploads, bits, finite, bits_to_target "
+                f"{got}; JAX {(uploads, bits, finite, to_target)}")
+        if not _same_loss(row["final_loss"], loss):
+            raise AssertionError(f"phase 17 {name}: final loss "
+                                 f"{row['final_loss']!r}, JAX {loss!r}")
+        rows[name] = dict(row, jax_final_loss=loss)
+        log(f"  ok {name}: uploads {row['total_uploads']} bits "
+            f"{row['total_bits']:.0f} finite {row['finite']} bits_to_target "
+            f"{row['bits_to_target']}, final loss {row['final_loss']!r} (JAX "
+            f"{loss!r})")
+    target = res["results"]["fault_frontier/target"]["target_loss"]
+    if not _close(target, want["target_loss"], LOSS_RTOL):
+        raise AssertionError(f"phase 17: target loss {target!r}, JAX "
+                             f"{want['target_loss']!r}")
+    wd = res["results"]["fault_frontier/watchdog_log"]
+    if wd != want["watchdog_log"]:
+        raise AssertionError(f"phase 17: watchdog log {wd}, JAX "
+                             f"{want['watchdog_log']}")
+    claims = tuple(res["checks"].values())
+    if claims != want["claims"]:
+        raise AssertionError(f"phase 17: claims {res['checks']}, JAX "
+                             f"{want['claims']}")
+    log(f"  ok fault_frontier: {res['seconds']:.1f} s on the card; launches "
+        f"absmax {res['launches']['absmax']}, quantize_pack_fused "
+        f"{res['launches']['quantize_pack_fused']} (predicted {n}: "
+        f"{cells} in the eleven cells, {(ff.STEPS + wasted) * ff.W} in the "
+        f"watchdog's {ff.STEPS} + {wasted} rounds); target {target!r}; "
+        f"watchdog {wd}; the claims are the reference's: {res['checks']}")
+    return {"fault_frontier": res["launches"]}, rows
+
+
 def expect_launches(method, launches, want):
     for name in KERNELS:
         if launches[name] != want.get(name, 0):
@@ -3418,17 +3629,18 @@ def main() -> int:
         log("  " + json.dumps({f"{path}_train": train_row,
                                f"{path}_serve": serve_row}))
 
-    log("phases 13-16: the paper's experiments at full size, fused wire, "
-        "each run in a process of its own, all at once")
+    log("phases 13-17: the paper's experiments and the fault frontier at "
+        "full size, fused wire, each run in a process of its own, all at "
+        "once")
     gc.collect()
     torch.cuda.empty_cache()
     paper_data_check(torch)
     flat = [(phase, run, argv) for phase, runs in paper_children().items()
             for run, argv in runs.items()]
     t0 = time.perf_counter()
-    res = _run_children([argv for _, _, argv in flat], "phases 13-16")
+    res = _run_children([argv for _, _, argv in flat], "phases 13-17")
     wall = time.perf_counter() - t0
-    out = {13: {}, 14: {}, 15: {}, 16: {}}
+    out = {13: {}, 14: {}, 15: {}, 16: {}, 17: {}}
     for (phase, run, _), r in zip(flat, res):
         out[phase][run] = r
     log("phase 13: the paper's Tables 2 and 3")
@@ -3447,8 +3659,15 @@ def main() -> int:
     stoch_launches, stoch_rows = paper_stoch_frontiers(out[16])
     by_path.update(stoch_launches)
     log("  " + json.dumps({"paper_stoch_frontiers": stoch_rows}))
-    log(f"  ok phases 13-16: the {len(flat)} processes in {wall:.1f} s, at "
-        "once")
+    log("phase 17: the fault frontier")
+    fault_launches, fault_rows = paper_fault_frontier(
+        out[17]["fault_frontier"])
+    by_path.update(fault_launches)
+    log("  " + json.dumps({"fault_frontier": fault_rows}))
+    log(f"  ok phases 13-17: the {len(flat)} processes in {wall:.1f} s, at "
+        f"once; the longest "
+        f"{max(r['seconds'] for p in out.values() for r in p.values()):.1f} s"
+        f" on the card")
 
     src = "src/repro_torch/kernels/csrc/quant_pack.cu"
     replaces = {

@@ -18,18 +18,27 @@ in structure:
 * the port's bookkeeping ints (``total_uploads``, ``step``) are stored as
   int32 0-d arrays, as the reference holds them, and load back as ints;
 * an SVRG ``mu_anchor`` not yet set (before the first round) is stored as
-  zeros, as the reference initializes it;
-* lists load back as one tensor per element: the W workers' shared
-  iterate references (``theta_last``, ``theta_anchor``, the delay ring)
-  come back as W copies.
+  zeros, as the reference initializes it.
+
+The running carry holds references to one iterate in several slots of its
+:class:`~repro_torch.tree.SharedIterates` lists (``theta_last``,
+``theta_anchor``, the ``delay`` ring); the file keeps a row per slot, as
+the reference's stacked arrays do.  A load gives those rows back as one
+tensor per distinct iterate, shared by every slot whose row holds the
+same bits (across the three fields too), so a resumed carry holds no more
+copies than the unbroken one.  Every other list (``qhat``, the EMAs, the
+error memory) is updated in place and loads as one tensor per row.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..tree import SharedIterates
 
 _BF16 = "BF16::"
 
@@ -145,6 +154,7 @@ def load_checkpoint(path: str, tree_template) -> Tuple[object, int]:
         raise KeyError(f"{path}: not a repro checkpoint (no __step__ entry)")
     step = int(data.pop("__step__"))
     used, missing = set(), []
+    pool = {}   # the shared iterates' rows: (bits, dtype, device) -> tensor
 
     def lookup(key):
         for k in (_BF16 + key, key):
@@ -154,17 +164,34 @@ def load_checkpoint(path: str, tree_template) -> Tuple[object, int]:
         missing.append(key)
         return None
 
-    def restore(node, kp, index):
-        """``node`` restored from the file; ``kp`` is its key path and
-        ``index`` selects the rows of the enclosing lists' stacked
-        arrays."""
+    def shared_tensor(arr, node):
+        """The tensor of a shared iterate's row: one per distinct row
+        bits, dtype and device."""
+        row = np.ascontiguousarray(arr)
+        key = (hashlib.blake2b(row.view(np.uint8), digest_size=16).digest(),
+               row.dtype.str, row.shape, node.dtype, str(node.device))
+        for other, t in pool.get(key, ()):
+            if np.array_equal(other.view(np.uint8), row.view(np.uint8)):
+                return t
+        t = torch.from_numpy(row.copy()).to(dtype=node.dtype,
+                                            device=node.device)
+        pool.setdefault(key, []).append((row, t))
+        return t
+
+    def restore(node, kp, index, shared):
+        """``node`` restored from the file; ``kp`` is its key path,
+        ``index`` selects the rows of the enclosing lists' stacked arrays
+        and ``shared`` says that one of them is a
+        :class:`~repro_torch.tree.SharedIterates`."""
         node = _fill_svrg(node)
         if isinstance(node, _ZerosLike):
             node = node.tree
         if node is None:
             return None
         if isinstance(node, list):
-            return [restore(e, kp, index + (m,)) for m, e in enumerate(node)]
+            sh = shared or isinstance(node, SharedIterates)
+            return type(node)(restore(e, kp, index + (m,), sh)
+                              for m, e in enumerate(node))
         kids = _children(node)
         if kids is None:
             arr = lookup(kp)
@@ -179,16 +206,18 @@ def load_checkpoint(path: str, tree_template) -> Tuple[object, int]:
                     f"{tuple(arr.shape)} vs template {shape}")
             if isinstance(node, (bool, int, float)):
                 return type(node)(arr)
+            if shared:
+                return shared_tensor(arr, node)
             return torch.from_numpy(np.array(arr)).to(dtype=node.dtype,
                                                       device=node.device)
-        vals = [restore(c, _join(kp, k), index) for k, c in kids]
+        vals = [restore(c, _join(kp, k), index, shared) for k, c in kids]
         if isinstance(node, dict):
             return dict(zip(sorted(node), vals))
         if _is_namedtuple(node):
             return type(node)(*vals)
         return tuple(vals)
 
-    restored = restore(tree_template, "", ())
+    restored = restore(tree_template, "", (), False)
     extra = sorted(set(data) - used)
     if missing or extra:
         raise KeyError(

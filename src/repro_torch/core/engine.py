@@ -58,7 +58,8 @@ import torch
 
 from .. import random
 from ..device import resolve_device
-from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..tree import (SharedIterates, tree_flatten, tree_leaves, tree_map,
+                    tree_unflatten)
 from .adaptive import eta_at
 from .compressors import qsgd_compress, ssgd_compress
 from .faults import (apply_crashes, bitflip_keys, corrupt_grad,
@@ -553,11 +554,11 @@ class DelayedParticipation:
         self.delays = [m % self.length for m in range(n_workers)]
 
     def init(self, params0):
-        return [params0] * self.length
+        return SharedIterates([params0] * self.length)
 
     def begin_round(self, hist, step, params):
         # hist[d] = theta^{k-d} after the push (index 0 = current round)
-        hist = [params] + list(hist[:-1])
+        hist = SharedIterates([params] + list(hist[:-1]))
         return None, [hist[d] for d in self.delays], hist
 
 

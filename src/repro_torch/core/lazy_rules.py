@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import SharedIterates, tree_leaves, tree_map
 from .criterion import CriterionConfig, rhs_threshold
 from .quantize import fma_f32, tree_sq_norm, tree_sq_norm_diff
 
@@ -100,7 +100,7 @@ def init_lazy_state(rule: str, grad_template, n_workers: int) -> LazyState:
         stat_ema=torch.zeros(n_workers, dtype=F32),
         stat_count=torch.zeros(n_workers, dtype=F32),
         sigma_hat_sq=torch.zeros(n_workers, dtype=F32),
-        theta_last=([snapshot] * n_workers
+        theta_last=(SharedIterates([snapshot] * n_workers)
                     if rule in _THETA_LAST_RULES else None),
     )
 

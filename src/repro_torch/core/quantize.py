@@ -59,7 +59,11 @@ def fma_f32(a, b, c) -> torch.Tensor:
     dev = next((x.device for x in (a, b, c) if isinstance(x, torch.Tensor)),
                None)
     a, b, c = (torch.as_tensor(x, dtype=F32, device=dev) for x in (a, b, c))
-    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    shapes = {x.shape for x in (a, b, c) if x.dim()}
+    # (torch.broadcast_shapes costs more than a small fma itself)
+    shape = (shapes.pop() if len(shapes) == 1 else torch.Size(())
+             if not shapes else torch.broadcast_shapes(a.shape, b.shape,
+                                                       c.shape))
     out = torch.empty(shape, dtype=F32, device=dev)
 
     def flat(t):

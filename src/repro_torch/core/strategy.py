@@ -49,7 +49,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..tree import (SharedIterates, tree_flatten, tree_leaves, tree_map,
+                    tree_unflatten)
 from .adaptive import BitSchedule, EtaSchedule, select_bits
 from .compressors import (COMPRESSORS, ErrorState, compressor_keys,
                           init_error_state, static_k)
@@ -192,8 +193,8 @@ def init_svrg_state(grad_mode: str, grad_template,
     if grad_mode != "svrg":
         return SvrgState(None, None)
     snapshot = tree_map(lambda l: l.to(F32), grad_template)
-    return SvrgState(
-        theta_anchor=[snapshot] * n_workers, mu_anchor=[None] * n_workers)
+    return SvrgState(theta_anchor=SharedIterates([snapshot] * n_workers),
+                     mu_anchor=[None] * n_workers)
 
 
 class CommState(NamedTuple):
@@ -587,10 +588,12 @@ def aggregate(state: CommState, grad_of: Callable[[int], object], alpha,
         comms.append(wo.committed)
         del wo
     if robust:
-        dsum = robust_aggregate(cfg.aggregator, held, comms, cfg.trim_frac,
-                                template=state.server_agg)
+        # added into server_agg, the rescale contracted into the addition
+        robust_aggregate(cfg.aggregator, held, comms, cfg.trim_frac,
+                         template=state.server_agg, into=state.server_agg)
         del held
-    _add_(state.server_agg, dsum)
+    else:
+        _add_(state.server_agg, dsum)
     del dsum
 
     bits_m = torch.stack(bits_m)

@@ -243,6 +243,15 @@ _LOGF_P = tuple(_f32_hex(h) for h in (
     "0x3FBDE4A340000000", "0xBFC555CA00000000", "0x3FD5555540000000"))
 _LOGF_Q1 = _f32_hex("0xBF2BD01060000000")
 _LOGF_Q2 = _f32_hex("0x3FE6300000000000")
+# expf (Cephes): the clamps, log2(e), ln(2) in two parts, the polynomial
+_EXPF_LO = _f32_hex("0xC055F33340000000")
+_EXPF_HI = _f32_hex("0x4056333340000000")
+_EXPF_LOG2E = _f32_hex("0x3FF7154760000000")
+_EXPF_C1 = _f32_hex("0x3FE6300000000000")
+_EXPF_C2 = _f32_hex("0xBF2BD01060000000")
+_EXPF_P = tuple(_f32_hex(h) for h in (
+    "0x3F2A0D2CE0000000", "0x3F56E879C0000000", "0x3F81112100000000",
+    "0x3FA5553820000000", "0x3FC5555540000000")) + (0.5,)
 # log1p for |x| < sqrt(2) - 1: x - x^2/2 + x^3 * N(x) / D(x)
 _LOG1P_SMALL = _f32_hex("0x3FDA8279A0000000")
 _LOG1P_D = tuple(_f32_hex(h) for h in (
@@ -271,20 +280,17 @@ def _const(x, c: float) -> torch.Tensor:
     return torch.full_like(x, c)
 
 
-def _log1p(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.log1p`` in float32 as XLA's CPU backend computes it (jax 0.9).
-
-    Two branches, both computed and one selected by ``|x| < sqrt(2) - 1``:
-    a rational ``x - x^2/2 + x^3 N(x) / D(x)`` near 0, and otherwise the
-    Cephes ``logf`` of ``t = 1 + x`` (exponent and mantissa split on the
-    bits, a degree-8 polynomial in the reduced mantissa).  Every
-    ``fmul`` whose one use is an ``fadd`` is contracted to an FMA by LLVM's
-    code generator; the rest are single float32 operations, in the order
-    of XLA's IR.  Subnormal inputs are flushed to zero first."""
-    x = _ftz(x)
-    zero, one = torch.zeros_like(x), torch.ones_like(x)
-    t = x + 1.0
-    # --- logf(t) ---
+def xla_log(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` in float32 as XLA's CPU backend computes it (jax 0.9):
+    the Cephes ``logf`` (exponent and mantissa split on the bits, the
+    mantissa in ``[sqrt(1/2), sqrt(2))``, a degree-8 polynomial in the
+    reduced mantissa).  Every ``fmul`` whose one use is an ``fadd`` is
+    contracted to an FMA by LLVM's code generator; the rest are single
+    float32 operations, in the order of XLA's IR.  ``t <= 0`` or NaN gives
+    NaN (all bits set), 0 (and a subnormal, flushed) gives -inf, +inf
+    gives +inf."""
+    t = _ftz(t)
+    zero, one = torch.zeros_like(t), torch.ones_like(t)
     tm = torch.where(t > _FLT_MIN, t, _const(t, _FLT_MIN))
     bits = tm.view(torch.int32)
     e = ((bits >> 23) - 127).to(F32) + 1.0
@@ -300,7 +306,6 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
     c = fma_f32(fma_f32(r, P[4], P[5]), r, P[8])
     poly = fma_f32(fma_f32(fma_f32(a, r3, b), r3, c), r3, e * _LOGF_Q1)
     big = fma_f32(e, _LOGF_Q2, (r - z * 0.5) + poly)
-    # t <= 0 or NaN -> NaN (all bits set), t == 0 -> -inf, t == inf -> inf
     out = big.view(torch.int32)
     izero = torch.zeros_like(out)
     finite_t = (t != 0) & (t != math.inf)
@@ -309,7 +314,42 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
                                       _const(out, 0x7F800000)),
                           _const(out, -0x800000))
     out = torch.where(t > 0, out, _const(out, -1))
-    big = (special | torch.where(finite_t, out, izero)).view(F32)
+    return (special | torch.where(finite_t, out, izero)).view(F32)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` in float32 as XLA's CPU backend computes it (jax 0.9),
+    read off its IR: ``x`` clamped to ``[-87.8, 88.7]``, ``n =
+    floor(x log2(e) + 1/2)`` clamped to ``[-127, 127]``, ``r = x - n
+    ln(2)`` in two steps (Cody-Waite), a degree-5 polynomial in ``r``,
+    ``1 + r + r^2 p(r)``, times ``2^n`` built on the bits.  The FMAs are
+    LLVM's contractions, as in :func:`xla_log`; NaN passes through the
+    clamps.  Subnormal inputs and results are flushed to zero (XLA's CPU
+    code runs with denormals off)."""
+    x = _ftz(x)
+    x = torch.where(x < _EXPF_LO, _const(x, _EXPF_LO), x)
+    x = torch.where(x > _EXPF_HI, _const(x, _EXPF_HI), x)
+    n = torch.floor(fma_f32(x, _EXPF_LOG2E, 0.5))
+    n = torch.clamp(n, -127.0, 127.0)
+    r = fma_f32(-n, _EXPF_C1, x)
+    r = fma_f32(-n, _EXPF_C2, r)
+    y = fma_f32(r, _EXPF_P[0], _EXPF_P[1])
+    for k in _EXPF_P[2:]:
+        y = fma_f32(y, r, k)
+    y = fma_f32(y, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(F32)
+    return _ftz(y * scale)
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` in float32 as XLA's CPU backend computes it (jax 0.9).
+
+    Two branches, both computed and one selected by ``|x| < sqrt(2) - 1``:
+    a rational ``x - x^2/2 + x^3 N(x) / D(x)`` near 0, and otherwise
+    :func:`xla_log` of ``1 + x``.  Subnormal inputs are flushed to zero
+    first."""
+    x = _ftz(x)
+    big = xla_log(x + 1.0)
     # --- near 0 ---
     x2 = x * x
     x0 = x * 0.0

@@ -11,6 +11,17 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
+class SharedIterates(list):
+    """A list of references to iterates (parameter trees) that their
+    holders never update in place, so that several slots may hold one
+    tree: the stale iterates ``theta_last`` of the lazy rules, the SVRG
+    anchors ``theta_anchor`` and the ``delay`` participation ring.  It
+    flattens as a list; a checkpoint load
+    (:func:`repro_torch.checkpoint.ckpt.load_checkpoint`) gives its rows
+    back as one tensor per distinct iterate, shared by every slot that
+    held it."""
+
+
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 

@@ -11,6 +11,9 @@ load equals the unbroken run bit for bit; a carry saved by the JAX engine
 after k rounds and resumed in the port for k more (and the reverse) agrees
 with JAX's 2k rounds: counts exact, floats to rtol 1e-5 / atol 1e-5 (1e-4
 for the stochastic run), as ``test_torch_participation.py`` holds them.
+A resumed carry of a run with shared iterates (``lasg_ps``, ``delay``,
+``lasg_wk2`` with SVRG) holds one tensor per distinct iterate, no more
+storage than the unbroken carry at the same round.
 """
 import os
 from typing import NamedTuple
@@ -23,6 +26,7 @@ import torch_engine_cases as C
 from repro.checkpoint import load_checkpoint as jload
 from repro.checkpoint import save_checkpoint as jsave
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+from repro_torch.tree import SharedIterates, tree_leaves
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -149,6 +153,56 @@ def test_split_run_equals_the_unbroken_one(name, tmp_path):
     for f in C.EXACT + C.CLOSE:
         joined = torch.cat([getattr(first, f), getattr(second, f)])
         assert torch.equal(joined, getattr(whole, f)), f
+    for k in whole.params:
+        assert torch.equal(second.params[k], whole.params[k])
+
+
+# the runs whose carry holds SharedIterates lists: the stale iterates of
+# lasg_ps, the delay ring, the SVRG anchors and lasg_wk2's stale iterates
+SHARED = {
+    "lasg_ps": ("regression", dict(kind="laq", bits=4, lazy_rule="lasg_ps")),
+    "delay": SPLIT["delay"],
+    "wk2_svrg_bernoulli": SPLIT["wk2_svrg_bernoulli"],
+}
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages under ``tree``'s tensor leaves."""
+    seen = {}
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            st = leaf.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_resumed_carry_keeps_the_shared_iterates(name, tmp_path):
+    """A load gives the shared iterates back as one tensor per distinct
+    iterate: the resumed carry holds no more storage than the unbroken
+    run's carry at the same round, and runs on bit for bit as it."""
+    problem, kw = SHARED[name]
+    _, te, _, tp = _engines(problem, kw)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, te.init_carry(tp, device="cpu"), 0)
+    fresh, _ = load_checkpoint(path, te.init_carry(tp, device="cpu"))
+    lists = [x for x in (fresh[1].lazy.theta_last, fresh[1].svrg.theta_anchor,
+                         fresh[2]) if isinstance(x, SharedIterates)]
+    assert lists
+    # before any round every slot holds the initial iterate: one storage
+    assert len({leaf.untyped_storage().data_ptr()
+                for x in lists for leaf in tree_leaves(x)}) == len(
+                    tree_leaves(tp))
+    carry, first = te.run_from(te.init_carry(tp, device="cpu"), 8)
+    save_checkpoint(path, carry, 8)
+    resumed, step = load_checkpoint(path, te.init_carry(tp, device="cpu"))
+    assert step == 8
+    assert _storage_bytes(resumed) <= _storage_bytes(carry), (
+        _storage_bytes(resumed), _storage_bytes(carry))
+    _, whole = te.run_from(carry, 8)
+    _, second = te.run_from(resumed, 8)
+    for f in C.EXACT + C.CLOSE:
+        assert torch.equal(getattr(second, f), getattr(whole, f)), f
     for k in whole.params:
         assert torch.equal(second.params[k], whole.params[k])
 

@@ -250,6 +250,40 @@ def test_robust_aggregate_matches_reference(aggregator, case):
                                       w[live].view(np.int32), err_msg=k)
 
 
+@pytest.mark.parametrize("aggregator", ("trimmed_mean", "median"))
+@pytest.mark.parametrize("case", range(len(ROBUST)))
+def test_robust_aggregate_into_the_server_aggregate(aggregator, case):
+    """The engine's form: ``server_agg + robust`` under jit, in which XLA
+    contracts the rescale ``mean * n`` into the addition, equals the port's
+    ``robust_aggregate(..., into=server_agg)`` bit for bit (NaN as NaN);
+    the product rounded before the addition parts from it."""
+    W, comm, frac = ROBUST[case]
+    rng = np.random.default_rng(100 + case)
+    d = {"a": rng.standard_normal((W, 301)).astype(np.float32) * 3,
+         "b": rng.standard_normal((W, 6, 5)).astype(np.float32)}
+    d["a"][:, :4] = np.array([np.inf, np.nan, 0.0, -0.0], np.float32)
+    agg = {k: rng.standard_normal(v.shape[1:]).astype(np.float32)
+           for k, v in d.items()}
+    committed = np.array(comm, bool)
+    masked = {k: np.where(committed.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                          np.float32(0.0)) for k, v in d.items()}
+    want = jax.jit(lambda a, x, c: jax.tree.map(
+        lambda u, r: u + r, a, jdef.robust_aggregate(aggregator, x, c, frac)))(
+            agg, masked, committed)
+    into = {k: torch.from_numpy(v.copy()) for k, v in agg.items()}
+    deltas = [{k: torch.from_numpy(v[m].copy()) for k, v in d.items()}
+              if committed[m] else None for m in range(W)]
+    got = tdef.robust_aggregate(aggregator, deltas, committed.tolist(), frac,
+                                template=into, into=into)
+    assert got is into
+    for k in d:
+        w, g = np.asarray(want[k]), into[k].numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+        live = ~np.isnan(w)
+        np.testing.assert_array_equal(g[live].view(np.int32),
+                                      w[live].view(np.int32), err_msg=k)
+
+
 def test_sort_matches_jnp_sort_on_special_values():
     """``torch.sort(stable=True)`` orders NaN last and keeps ``-0`` and
     ``+0`` in input order, as ``jnp.sort`` (stable, -0 == +0) does."""
